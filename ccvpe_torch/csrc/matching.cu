@@ -18,8 +18,9 @@
 // the card's ratio of f32 FLOP rate to memory rate (about 20), so what
 // matters is to read X once, write each output once, and keep the
 // instructions per element few enough that the FMA pipes are not the limit.
-// Two layouts, chosen by the wrapper from Cs (both compute the same
-// function, with the same f32 arithmetic per output):
+// Three layouts, chosen by the wrapper from the shape (all compute the same
+// function in f32, equal to within an ulp per output); the third, tile, is
+// K1's only:
 //
 //   * warp layout (large Cs, few pixel rows: the coarse scales): one block
 //     per (tile of rows, sample b); g_b, zero-padded to Cs and stored twice,
@@ -39,10 +40,39 @@
 //     broadcast reads of W (no shuffles, no reductions across threads), and
 //     the rows' scores leave through shared memory as one contiguous span.
 //
-// K1 writes xnorm in a second pass over the rows, which were just read, so
-// it hits L2.  It scales by 1 / max(||X||, 1e-12), computed once per row:
-// within an ulp of the division, which would cost several instructions per
-// element.
+// K1 in the warp and row layouts writes xnorm in a second pass over the
+// rows, which were just read, so it hits L2.  It scales by
+// 1 / max(||X||, 1e-12), computed once per row: within an ulp of the
+// division, which would cost several instructions per element.
+//
+//   * tile layout (K1 only, the fine scales; chosen over `row` where it
+//     measured faster): persistent, double-buffered, one read of x.  It is
+//     bound by bytes like the others; each choice cuts a cost that kept the
+//     row layout from the memory rate:
+//       - blocks live long: the grid is (blocks resident on the card /
+//         batch) x batch, each block walks the tiles of its sample with a
+//         stride of the grid and builds W and ||g_b|| once, not per 128
+//         rows, while its first tile is already in flight;
+//       - a tile is R consecutive pixel rows, one contiguous span of x,
+//         copied in 16-byte cp.async granules into a ring of two stages:
+//         tile t+1 is in flight while tile t is computed and written;
+//       - the row stride in shared memory is padded to an odd number of
+//         granules, so a warp's per-row 16-byte reads (thread = row) hit
+//         distinct banks (a flat copy gives 2-, 4- and 8-way conflicts at
+//         40, 80 and 160 f32 channels); bf16 is staged raw, 8 a granule;
+//       - arithmetic as in the row layout (thread = row, f32 FMAs against
+//         float4 broadcasts of W), but the scores are scaled by one
+//         reciprocal per row (within an ulp of the division per bin);
+//       - all three outputs leave from shared memory in 16-byte stores,
+//         xnorm from the staged tile itself: no second read of x.
+//     Alignment: x, xnorm and a tile's span of them are 16-byte aligned
+//     because Cs * sizeof(T) is a multiple of 16 (the wrapper refuses
+//     other Cs).  A span of scores (R * bins) or smax (R) starts anywhere:
+//     its rows are staged at an offset of (first element mod V) in shared
+//     memory, so a granule there is a granule in the output; the part
+//     before the first whole granule and after the last is written element
+//     by element, and nothing outside the span.  The last tile of a sample
+//     copies, computes and writes only its rows < HW.
 //
 // Where it is likely to go wrong, and what the code does about it:
 //   * negative offsets: C's % is not Python's; k_i comes from the host,
@@ -63,6 +93,7 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include <cstdint>
 #include <type_traits>
 
 namespace {
@@ -74,6 +105,9 @@ constexpr int kRowThreads = 128;          // row layout: pixel rows per block
 constexpr int kChunk = 32;                // row layout: channels staged per pass
 constexpr int kRowMaxSmem = 200 * 1024;   // row layout: dynamic shared memory cap
 constexpr int kUnroll = 8;                // warp layout: loads in flight per lane
+constexpr int kTileMaxRows = 128;         // tile layout: rows per tile = threads per block
+constexpr int kTileStages = 2;            // tile layout: tiles in the shared-memory ring
+constexpr int kTileMinBlocks = 4;         // tile layout: blocks per SM the registers allow
 
 struct BinShifts {
   int k[kMaxBins];  // k_i for i < bins; 0 (any valid shift) beyond
@@ -375,6 +409,226 @@ match_row_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restrict
   }
 }
 
+// ----------------------------------------------------------- tile layout
+
+struct TileSmem {  // byte offsets into the dynamic shared memory
+  int stage, w, sc, sm, inv, gs, total;
+};
+
+__host__ __device__ inline int round16(int n) { return (n + 15) / 16 * 16; }
+
+// Row stride of a staged tile in 16-byte granules: Cs * sizeof(T) / 16,
+// made odd so that 8 rows' granules at one column fall in distinct banks.
+__host__ __device__ inline int tile_stride(int cs, int tsize) { return (cs * tsize / 16) | 1; }
+
+// ccvpe_torch/ops/matching_cuda.py::tile_smem_bytes mirrors this layout.
+__host__ __device__ inline TileSmem tile_smem(int cs, int nb, int bins, int rows, int tsize) {
+  const int v = 16 / tsize;  // elements per granule
+  TileSmem s;
+  s.stage = 0;                                            // [stages][rows][stride] granules of x
+  s.w = s.stage + kTileStages * rows * tile_stride(cs, tsize) * 16;
+  s.sc = s.w + cs * nb * 4;                               // W [cs][nb] f32
+  s.sm = s.sc + round16((rows * bins + v) * tsize);       // a tile's scores, T, after `lead`
+  s.inv = s.sm + round16((rows + v) * tsize);             // a tile's smax, T, after `lead`
+  s.gs = s.inv + rows * 4;                                // [rows] 1 / max(||X||, 1e-12)
+  s.total = s.gs + round16(cs * 4);                       // [cs] descriptor g_b
+  return s;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Start the copy of nrows rows of gr granules, contiguous at src, into dst
+// with a row stride of gp granules; consecutive threads take consecutive
+// granules.
+__device__ __forceinline__ void stage_tile(uint4* dst, const uint4* src, int nrows, int gr,
+                                           int gp) {
+  const int dr = blockDim.x / gr, dc = blockDim.x - dr * gr;
+  int r = threadIdx.x / gr, c = threadIdx.x - r * gr;
+  for (int q = threadIdx.x; q < nrows * gr; q += blockDim.x) {
+    cp_async16(dst + r * gp + c, src + q);
+    r += dr;
+    c += dc;
+    if (c >= gr) c -= gr, ++r;
+  }
+}
+
+// The 16 / sizeof(T) values of one granule as f32, and back (bf16: element
+// 2j is the low half of word j).
+template <typename T>
+__device__ __forceinline__ void unpack(const uint4& u, float* v) {
+  const unsigned wd[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if constexpr (std::is_same<T, float>::value) {
+      v[j] = __uint_as_float(wd[j]);
+    } else {
+      v[2 * j] = __bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(wd[j])));
+      v[2 * j + 1] = __bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(wd[j] >> 16)));
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ uint4 pack(const float* v) {
+  unsigned wd[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if constexpr (std::is_same<T, float>::value) {
+      wd[j] = __float_as_uint(v[j]);
+    } else {
+      wd[j] = static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * j]))) |
+              static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * j + 1]))) << 16;
+    }
+  }
+  return make_uint4(wd[0], wd[1], wd[2], wd[3]);
+}
+
+// Write dst[e0, e0 + n) from buf, where buf[k] holds element
+// e0 - (e0 mod V) + k (V = 16 / sizeof(T)): a whole 16-byte granule of dst
+// is then a whole granule of buf and goes in one store.  The elements before
+// the first whole granule and after the last go one by one; nothing outside
+// the span is written.  dst must be 16-byte aligned.
+template <typename T>
+__device__ __forceinline__ void store_span(T* __restrict__ dst, const T* buf, size_t e0, int n) {
+  constexpr int V = 16 / sizeof(T);
+  const int lead = static_cast<int>(e0 % V);
+  const int head = lead ? min(V - lead, n) : 0;
+  const int body = (n - head) / V;
+  for (int k = threadIdx.x; k < head; k += blockDim.x) dst[e0 + k] = buf[lead + k];
+  const uint4* src = reinterpret_cast<const uint4*>(buf + lead + head);
+  uint4* out = reinterpret_cast<uint4*>(dst + e0 + head);
+  for (int j = threadIdx.x; j < body; j += blockDim.x) out[j] = src[j];
+  for (int k = head + body * V + threadIdx.x; k < n; k += blockDim.x) dst[e0 + k] = buf[lead + k];
+}
+
+// K1, one thread per pixel row of a tile of blockDim.x rows.  Block
+// (blockIdx.x, b) walks tiles blockIdx.x, blockIdx.x + gridDim.x, ... of
+// sample b; tile t+1's copy is in flight while tile t is computed.
+template <typename T, int NB>
+__global__ void __launch_bounds__(kTileMaxRows, kTileMinBlocks)
+match_tile_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restrict__ scores,
+                  T* __restrict__ smax, T* __restrict__ xnorm, int hw, int cs, int bins,
+                  BinShifts sh) {
+  constexpr int V = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char tile_smem_buf[];
+  const int rows = blockDim.x, tid = threadIdx.x, b = blockIdx.y;
+  const TileSmem L = tile_smem(cs, NB, bins, rows, sizeof(T));
+  const int gr = cs / V, gp = tile_stride(cs, sizeof(T));
+  uint4* stage = reinterpret_cast<uint4*>(tile_smem_buf + L.stage);
+  float* w = reinterpret_cast<float*>(tile_smem_buf + L.w);
+  T* sc = reinterpret_cast<T*>(tile_smem_buf + L.sc);
+  T* sm = reinterpret_cast<T*>(tile_smem_buf + L.sm);
+  float* inv = reinterpret_cast<float*>(tile_smem_buf + L.inv);
+  float* gs = reinterpret_cast<float*>(tile_smem_buf + L.gs);
+  const size_t row0 = (size_t)b * hw;  // the sample's first pixel row
+  const uint4* xg = reinterpret_cast<const uint4*>(x + row0 * cs);
+  const int tiles = (hw + rows - 1) / rows;
+
+  // the first tile is in flight while the block builds W and ||g_b||
+  int t = blockIdx.x;
+  if (t < tiles) stage_tile(stage, xg + (size_t)t * rows * gr, min(rows, hw - t * rows), gr, gp);
+  cp_async_commit();
+  for (int c = tid; c < cs; c += rows) gs[c] = to_f32(g[(size_t)b * cs + c]);
+  __syncthreads();
+  float gsq = 0.f;
+  for (int c = 0; c < cs; ++c) gsq = fmaf(gs[c], gs[c], gsq);
+  const float gnorm = sqrtf(gsq);
+  // W[c][i] = g_b[(c - k_i) mod cs], 0 for i >= bins; complete after the
+  // barrier that follows the first tile's arrival
+  for (int e = tid; e < cs * NB; e += rows) {
+    const int c = e / NB, i = e - c * NB;
+    float wv = 0.f;
+    if (i < bins) {
+      int j = c - sh.k[i];
+      if (j < 0) j += cs;
+      wv = gs[j];
+    }
+    w[e] = wv;
+  }
+
+  for (int k = 0; t < tiles; t += gridDim.x, ++k) {
+    const int p0 = t * rows, nrows = min(rows, hw - p0);
+    const uint4* cur = stage + (k & 1) * rows * gp;
+    const int tn = t + gridDim.x;
+    if (tn < tiles)
+      stage_tile(stage + ((k + 1) & 1) * rows * gp, xg + (size_t)tn * rows * gr,
+                 min(rows, hw - tn * rows), gr, gp);
+    cp_async_commit();
+    cp_async_wait<1>();  // this thread's copies of tile t have landed,
+    __syncthreads();     // and every thread's
+    const size_t e0 = row0 + p0;  // the tile's first pixel row in x
+    if (tid < nrows) {
+      float acc[NB];
+#pragma unroll
+      for (int i = 0; i < NB; ++i) acc[i] = 0.f;
+      float sq = 0.f;
+      const uint4* xr = cur + tid * gp;
+#pragma unroll 2
+      for (int q = 0; q < gr; ++q) {
+        float v[V];
+        unpack<T>(xr[q], v);
+#pragma unroll
+        for (int u = 0; u < V; ++u) {
+          const float4* wc = reinterpret_cast<const float4*>(w + (q * V + u) * NB);
+#pragma unroll
+          for (int i4 = 0; i4 < NB / 4; ++i4) {
+            const float4 wq = wc[i4];
+            acc[4 * i4 + 0] = fmaf(v[u], wq.x, acc[4 * i4 + 0]);
+            acc[4 * i4 + 1] = fmaf(v[u], wq.y, acc[4 * i4 + 1]);
+            acc[4 * i4 + 2] = fmaf(v[u], wq.z, acc[4 * i4 + 2]);
+            acc[4 * i4 + 3] = fmaf(v[u], wq.w, acc[4 * i4 + 3]);
+          }
+          sq += v[u] * v[u];
+        }
+      }
+      const float norm = sqrtf(sq);
+      // one reciprocal per row in place of a division per bin
+      const float rden = 1.f / fmaxf(norm * gnorm, 1e-12f);
+      float m = -__int_as_float(0x7f800000);
+      T* sr = sc + static_cast<int>(e0 * bins % V) + tid * bins;
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        if (i < bins) {
+          const float s = acc[i] * rden;
+          m = fmaxf(m, s);
+          sr[i] = from_f32<T>(s);
+        }
+      }
+      sm[e0 % V + tid] = from_f32<T>(m);
+      inv[tid] = 1.f / fmaxf(norm, 1e-12f);
+    }
+    __syncthreads();
+    store_span(scores, sc, e0 * bins, nrows * bins);
+    store_span(smax, sm, e0, nrows);
+    // xnorm: the staged rows times their 1 / norm, a granule per store
+    uint4* xo = reinterpret_cast<uint4*>(xnorm + e0 * cs);
+    const int dr = rows / gr, dc = rows - dr * gr;
+    int r = tid / gr, c = tid - r * gr;
+    for (int q = tid; q < nrows * gr; q += rows) {
+      float v[V];
+      unpack<T>(cur[r * gp + c], v);
+      const float s = inv[r];
+#pragma unroll
+      for (int u = 0; u < V; ++u) v[u] *= s;
+      xo[q] = pack<T>(v);
+      r += dr;
+      c += dc;
+      if (c >= gr) c -= gr, ++r;
+    }
+    __syncthreads();  // stage k & 1 and the output staging are read out
+  }
+}
+
 // ------------------------------------------------------------- dispatch
 
 int pick_nb(int bins) { return (bins + 3) / 4 * 4; }  // 4, 8, ..., 32
@@ -394,7 +648,26 @@ struct Args {
   int batch, hw, cs, cg, bins, rows_per_block;
   BinShifts sh;
   cudaStream_t st;
+  int tile_rows = 0, tile_grid = 0, tile_smem = 0;  // tile layout: threads, grid.x, bytes
 };
+
+// Raise a kernel's dynamic shared-memory cap to the device's opt-in maximum
+// and prefer shared memory over L1, once per device (both attributes are
+// set for the current device only).
+template <auto Kernel>
+void opt_in_smem() {
+  constexpr int kMaxDevices = 64;
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < kMaxDevices && done[dev]) return;
+  int optin = 0;
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  cudaFuncSetAttribute(Kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                       cudaSharedmemCarveoutMaxShared);
+  if (dev < kMaxDevices) done[dev] = true;
+}
 
 template <typename T, int NB, bool EPI, bool MASKED>
 void launch(const Args& a, int layout) {
@@ -408,7 +681,7 @@ void launch(const Args& a, int layout) {
     const size_t smem = (2 * (size_t)a.cs + kWarps) * sizeof(float);
     match_warp_kernel<T, NB, EPI, MASKED><<<grid, kThreads, smem, a.st>>>(
         x, g, scores, smax, xnorm, a.hw, a.cs, a.cg, a.bins, a.sh, a.rows_per_block);
-  } else {
+  } else if (layout == 1) {
     // raise the dynamic shared-memory cap once per device (the attribute
     // is set for the current device only)
     constexpr int kMaxDevices = 64;
@@ -424,29 +697,41 @@ void launch(const Args& a, int layout) {
     const size_t smem = row_smem(a.cs, NB, MASKED).total * sizeof(float);
     match_row_kernel<T, NB, EPI, MASKED><<<grid, kRowThreads, smem, a.st>>>(
         x, g, scores, smax, xnorm, a.hw, a.cs, a.cg, a.bins, a.sh);
+  } else if constexpr (EPI && !MASKED) {
+    opt_in_smem<&match_tile_kernel<T, NB>>();
+    match_tile_kernel<T, NB><<<dim3(a.tile_grid, a.batch), a.tile_rows, a.tile_smem, a.st>>>(
+        x, g, scores, smax, xnorm, a.hw, a.cs, a.bins, a.sh);
   }
 }
 
-template <typename T, bool EPI, bool MASKED>
-void dispatch_nb(const Args& a, int layout) {
-  switch (pick_nb(a.bins)) {
-    case 4: launch<T, 4, EPI, MASKED>(a, layout); break;
-    case 8: launch<T, 8, EPI, MASKED>(a, layout); break;
-    case 12: launch<T, 12, EPI, MASKED>(a, layout); break;
-    case 16: launch<T, 16, EPI, MASKED>(a, layout); break;
-    case 20: launch<T, 20, EPI, MASKED>(a, layout); break;
-    case 24: launch<T, 24, EPI, MASKED>(a, layout); break;
-    case 28: launch<T, 28, EPI, MASKED>(a, layout); break;
-    default: launch<T, 32, EPI, MASKED>(a, layout); break;
+// f(std::integral_constant<int, NB>{}) with NB = pick_nb(bins)
+template <typename F>
+auto with_nb(int bins, F&& f) {
+  switch (pick_nb(bins)) {
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 12: return f(std::integral_constant<int, 12>{});
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 20: return f(std::integral_constant<int, 20>{});
+    case 24: return f(std::integral_constant<int, 24>{});
+    case 28: return f(std::integral_constant<int, 28>{});
+    default: return f(std::integral_constant<int, 32>{});
   }
+}
+
+// f(T{}) with T the element type of dtype (0 = float32, 1 = bfloat16)
+template <typename F>
+auto with_dtype(int dtype, F&& f) {
+  return dtype == 1 ? f(__nv_bfloat16{}) : f(float{});
 }
 
 template <bool EPI, bool MASKED>
 int dispatch(const Args& a, int dtype, int layout) {
-  if (dtype == 1)
-    dispatch_nb<__nv_bfloat16, EPI, MASKED>(a, layout);
-  else
-    dispatch_nb<float, EPI, MASKED>(a, layout);
+  with_dtype(dtype, [&](auto t) {
+    with_nb(a.bins, [&](auto nb) {
+      launch<decltype(t), decltype(nb)::value, EPI, MASKED>(a, layout);
+    });
+  });
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -458,24 +743,64 @@ extern "C" int ccvpe_match_row_smem_bytes(int cs, int bins, int masked) {
   return row_smem(cs, pick_nb(bins), masked != 0).total * static_cast<int>(sizeof(float));
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  layout: 0 = warp, 1 = row.  x [batch,
-// hw, cs] and g [batch, cs] are contiguous; scores [batch, hw, bins], smax
-// [batch, hw], xnorm [batch, hw, cs].  ks holds bins values in [0, cs),
-// 1 <= bins <= 32.  Returns cudaGetLastError().
+// Shared memory (bytes) of the tile layout at `tile_rows` rows a tile; the
+// wrapper computes the same in Python (matching_cuda.tile_smem_bytes).
+extern "C" int ccvpe_match_tile_smem_bytes(int cs, int bins, int dtype, int tile_rows) {
+  return tile_smem(cs, pick_nb(bins), bins, tile_rows, dtype == 1 ? 2 : 4).total;
+}
+
+// Blocks of the tile layout that one SM keeps resident (the CUDA occupancy
+// calculator, registers included); the wrapper's plan must not exceed it.
+extern "C" int ccvpe_match_tile_blocks_per_sm(int cs, int bins, int dtype, int tile_rows,
+                                              int smem_bytes) {
+  (void)cs;
+  return with_dtype(dtype, [&](auto t) {
+    return with_nb(bins, [&](auto nb) {
+      constexpr auto kernel = &match_tile_kernel<decltype(t), decltype(nb)::value>;
+      opt_in_smem<kernel>();
+      int n = -1;
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, tile_rows, smem_bytes);
+      return n;
+    });
+  });
+}
+
+// dtype: 0 = float32, 1 = bfloat16.  layout: 0 = warp, 1 = row, 2 = tile.
+// x [batch, hw, cs] and g [batch, cs] are contiguous; scores [batch, hw,
+// bins], smax [batch, hw], xnorm [batch, hw, cs].  ks holds bins values in
+// [0, cs), 1 <= bins <= 32.  rows_per_block: warp layout only.  tile_rows
+// (a multiple of 32, <= 128), tile_grid (blocks per sample) and tile_bytes
+// (dynamic shared memory, at least the layout's): tile layout only, which also needs
+// cs * sizeof(T) a multiple of 16 and 16-byte aligned x, scores, smax and
+// xnorm.  Returns cudaErrorInvalidValue for a tile plan it does not take,
+// else cudaGetLastError().
 extern "C" int ccvpe_match_epilogue(const void* x, const void* g, void* scores,
                                     void* smax, void* xnorm, int batch, int hw,
                                     int cs, int bins, const int* ks, int dtype,
-                                    int layout, int rows_per_block, void* stream) {
-  const Args a{x, g, scores, smax, xnorm, batch, hw, cs, cs, bins, rows_per_block,
-               pack_shifts(ks, bins), static_cast<cudaStream_t>(stream)};
+                                    int layout, int rows_per_block, int tile_rows,
+                                    int tile_grid, int tile_bytes, void* stream) {
+  if (layout == 2) {
+    const int tsize = dtype == 1 ? 2 : 4;
+    const bool ok = tile_rows >= 32 && tile_rows <= kTileMaxRows && tile_rows % 32 == 0 &&
+                    tile_grid >= 1 && (cs * tsize) % 16 == 0 &&
+                    tile_smem(cs, pick_nb(bins), bins, tile_rows, tsize).total <= tile_bytes;
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Args a{x, g, scores, smax, xnorm, batch, hw, cs, cs, bins, rows_per_block,
+         pack_shifts(ks, bins), static_cast<cudaStream_t>(stream)};
+  a.tile_rows = tile_rows;
+  a.tile_grid = tile_grid;
+  a.tile_smem = tile_bytes;
   return dispatch<true, false>(a, dtype, layout);
 }
 
 // x [batch, hw, cs], g [batch, cg] with cg <= cs, scores [batch, hw, bins].
+// layout: 0 = warp, 1 = row (the tile layout is K1's only).
 extern "C" int ccvpe_match_scores(const void* x, const void* g, void* scores, int batch,
                                   int hw, int cs, int cg, int bins, const int* ks,
                                   int dtype, int layout, int rows_per_block,
                                   void* stream) {
+  if (layout != 0 && layout != 1) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{x, g, scores, nullptr, nullptr, batch, hw, cs, cg, bins, rows_per_block,
                pack_shifts(ks, bins), static_cast<cudaStream_t>(stream)};
   return cg < cs ? dispatch<false, true>(a, dtype, layout)

@@ -7,16 +7,18 @@ Phases, each printing one JSON line:
 
 1. device:  the card's name and power limit (``nvidia-smi``), torch and CUDA.
 2. build:   ``nvcc`` builds the matching kernels from ``ccvpe_torch/csrc``.
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   the VIGOR shapes (batch 8), the ori-prior bottleneck, the Oxford and KITTI
-   masked windows and two ragged maps, in float32 and bfloat16; then times of
-   the kernel, the plain version and ``torch.bmm`` (a yardstick only) beside
-   the least time the card could take.
+3. kernels: each kernel, in every layout that takes the shape (K1: warp,
+   row, tile; K2: warp, row), against its plain PyTorch version on the
+   card, at the VIGOR shapes (batch 8), the ori-prior bottleneck, the Oxford
+   and KITTI masked windows and ragged maps (K1's tile layout also at
+   batch 3, 41x41 and 66x66, 5 and 21 bins), in float32 and bfloat16; then
+   times of each layout, the plain version and ``torch.bmm`` (a yardstick
+   only) beside the least time the card could take.
 4. model:   ``ccvpe_torch.api.load_model(preset="VIGOR", seed=0)`` on the
    card; ``predict_batch`` at batch 8 with ``ori_noise`` 180 and 36 and with
-   ``fov=180``, counting kernel launches, held against the same model with
-   matching forced to the plain versions; and a NANO model on the card held
-   against the same model on the CPU.
+   ``fov=180``, counting kernel launches by kernel and by layout, held
+   against the same model with matching forced to the plain versions; and a
+   NANO model on the card held against the same model on the CPU.
 5. timing:  steady-state ``predict_batch`` pairs/s at batch 8 in float32,
    and the device time by kernel of three calls (``torch.profiler``).
 
@@ -69,6 +71,7 @@ BF16_TOL = dict(atol=1e-5, rtol=2.0 ** -7)
 # ccvpe_torch.models.cvm.VIGOR: Cg == Cs at every one.
 VIGOR_SCALES = [(8, 1280, 64), (16, 640, 32), (32, 320, 16), (64, 160, 8),
                 (128, 80, 4), (256, 40, 2)]
+KERNEL_NAMES = {"K1": "matching_epilogue", "K2": "matching_scores"}
 K1_REPLACES = "ccvpe_tpu/ops/pallas_matching.py:225"
 K2_REPLACES = "ccvpe_tpu/ops/pallas_matching.py:116"
 SOURCE = "ccvpe_torch/csrc/matching.cu"
@@ -181,6 +184,13 @@ def _check(name, got, want, dtype) -> float:
     return max(errs)
 
 
+def _layouts(kernel, shape, cg, bins, dtype) -> list[str]:
+    """Every layout of ``kernel`` ('K1' or 'K2') that takes the shape."""
+    cs = shape[-1]
+    return (["warp"] + (["row"] if MC.row_layout_fits(cs, cg, bins) else [])
+            + (["tile"] if kernel == "K1" and MC.tile_plan(shape, bins, dtype) else []))
+
+
 def _bound(nbytes: float, flops: float, dev: dict) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / dev["peak_bytes_per_s"], flops / dev["peak_f32_flops"]
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
@@ -200,8 +210,7 @@ def phase_kernels(dev: dict) -> dict:
             want = TM.matching_epilogue_plain(xf, gf, shift, offsets, window)
         else:
             want = (TM.matching_scores_plain(xf, gf, shift, offsets, window),)
-        layouts = ["warp"] + (["row"] if MC.row_layout_fits(cs, cg, len(offsets)) else [])
-        for layout in layouts:
+        for layout in _layouts(kernel, (b, *hw, cs), cg, len(offsets), dtype):
             if kernel == "K1":
                 got = MC.launch_matching_epilogue(x, g, shift, offsets, window, layout)
             else:
@@ -225,6 +234,11 @@ def phase_kernels(dev: dict) -> dict:
         for kernel in ("K1", "K2"):
             run(kernel, 2, (41, 41), 1280, 1280, 64, range(20), "first", dtype, 13)
             run(kernel, 2, (66, 66), 320, 320, 16, range(20), "first", dtype, 14)
+        # ragged maps whose score spans start off a 16-byte granule (5 and 21
+        # bins), at the tile layout's widths
+        for offsets in (range(-2, 3), range(21)):
+            run("K1", 3, (41, 41), 40, 40, 2, offsets, "first", dtype, 15)
+            run("K1", 3, (66, 66), 80, 80, 4, offsets, "first", dtype, 16)
     emit({"phase": "kernel_checks", "n": len(checks),
           "tolerance": {"float32": F32_TOL, "bfloat16": BF16_TOL},
           "max_abs_err": {f"{k} {str(d)[6:]}": v for (k, d), v in max_err.items()}})
@@ -254,9 +268,9 @@ def phase_kernels(dev: dict) -> dict:
             flops = pixels * cs * (2 * len(offsets) + (2 * len(offsets) if cg < cs else 2))
         nbytes = 4 * (x.numel() + g.numel() + out_elems)
         bound, by = _bound(nbytes, flops, dev)
-        layout = MC.pick_layout(x, cg, len(offsets))
-        by_layout = {lay: device_ms(lambda lay=lay: k_fn(lay)) for lay in ("warp", "row")
-                     if lay == "warp" or MC.row_layout_fits(cs, cg, len(offsets))}
+        layout = MC.pick_layout(KERNEL_NAMES[kernel], x, cg, len(offsets))
+        by_layout = {lay: device_ms(lambda lay=lay: k_fn(lay))
+                     for lay in _layouts(kernel, x.shape, cg, len(offsets), x.dtype)}
         row = {"kernel": kernel, "x": [BATCH, *hw, cs], "g": [BATCH, cg], "bins": 20,
                "layout": layout, "ms": by_layout[layout], "ms_by_layout": by_layout,
                "eager_ms": time_ms(k_fn), "plain_ms": device_ms(p_fn),
@@ -270,8 +284,8 @@ def phase_kernels(dev: dict) -> dict:
           for i, (s, cs, shift) in enumerate(VIGOR_SCALES)]
     k2 = [timed("K2", (8, 8), 1280, 1280, 64, 30)]
     # the limited-fov setting: K2 with the masked window at every scale
-    for i, (s, cs, shift) in enumerate(VIGOR_SCALES):
-        timed("K2", (s, s), cs, cs // 2, shift, 40 + i)
+    k2_fov = [timed("K2", (s, s), cs, cs // 2, shift, 40 + i)
+              for i, (s, cs, shift) in enumerate(VIGOR_SCALES)]
     emit({"phase": "kernel_times", "card": dev["nvidia_smi"], "shapes": shapes})
 
     def summary(name, rows, kernel, replaces):
@@ -284,11 +298,18 @@ def phase_kernels(dev: dict) -> dict:
                 "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
                 "bound_by": _bound(total["bytes"], total["flops"], dev)[1],
                 "library_ms": total["library_ms"],
-                "timed_at": "sum over x " + ", ".join(str(r["x"]) for r in rows)}
+                "timed_at": "sum over x " + ", ".join(str(r["x"]) for r in rows),
+                "layouts": [r["layout"] for r in rows]}
 
+    # K2 in two rows: its one launch per ori-prior forward (the full-bin
+    # bottleneck stack) and its six per fov=180 forward (masked windows), so
+    # that each row's ms and launches describe the same work
     return {"checks": checks, "shapes": shapes,
             "summary": [summary("matching_epilogue (K1)", k1, "K1", K1_REPLACES),
-                        summary("matching_scores (K2)", k2, "K2", K2_REPLACES)]}
+                        summary("matching_scores (K2), ori-prior bottleneck", k2, "K2",
+                                K2_REPLACES),
+                        summary("matching_scores (K2), fov=180 masked window", k2_fov, "K2",
+                                K2_REPLACES)]}
 
 
 def _images(cfg, batch, seed):
@@ -356,17 +377,28 @@ def phase_model(dev: dict) -> dict:
     settings = [(dict(ori_noise=180.0), (6, 0)), (dict(ori_noise=36.0), (6, 1)),
                 (dict(fov=180.0), (0, 6))]
 
-    # the main path, with every launch counter at 0 just before it
-    MC.reset_launch_counts()
-    poses, seen = [], []
+    # K1's layouts in each full-panorama setting: tile at the three fine
+    # scales, warp at the three coarse ones
+    k1_layouts = {("matching_epilogue", "tile"): 3, ("matching_epilogue", "warp"): 3}
+
+    # the main path, one setting at a time, with every launch counter at 0
+    # just before it and read just after
+    poses, steps, layout_steps = [], [], []
+    launches = dict.fromkeys(MC.LAUNCHES, 0)
     for kw, _ in settings:
+        MC.reset_launch_counts()
         poses.append(model.predict_batch(grd, sat, return_heatmap=True, **kw))
-        seen.append((MC.LAUNCHES["matching_epilogue"], MC.LAUNCHES["matching_scores"]))
-    launches = dict(MC.LAUNCHES)
-    steps = [(a[0] - b[0], a[1] - b[1]) for a, b in zip(seen, [(0, 0)] + seen)]
+        steps.append((MC.LAUNCHES["matching_epilogue"], MC.LAUNCHES["matching_scores"]))
+        layout_steps.append({k: n for k, n in MC.LAUNCHES_BY_LAYOUT.items() if n})
+        for k in launches:
+            launches[k] += MC.LAUNCHES[k]
     if steps != [w for _, w in settings]:
         raise AssertionError(f"kernel launches (K1, K2) per setting {steps}, "
                              f"want {[w for _, w in settings]}")
+    for (kw, _), got in zip(settings, layout_steps):
+        k1 = {k: n for k, n in got.items() if k[0] == "matching_epilogue"}
+        if "fov" not in kw and k1 != k1_layouts:
+            raise AssertionError(f"VIGOR {kw}: K1 launches by layout {k1}, want {k1_layouts}")
 
     results = []
     for (kw, _), ps in zip(settings, poses):
@@ -393,6 +425,9 @@ def phase_model(dev: dict) -> dict:
     info = {"phase": "model", "preset": "VIGOR", "batch": BATCH, "dtype": "float32",
             "setup_seconds": setup_s, "launches": launches,
             "launches_per_setting": dict(zip(map(json.dumps, (kw for kw, _ in settings)), steps)),
+            "launches_by_layout_per_setting": {
+                json.dumps(kw): {f"{k} {lay}": n for (k, lay), n in got.items()}
+                for (kw, _), got in zip(settings, layout_steps)},
             "tolerance": MODEL_TOL, "heading_tolerance_deg": HEADING_TOL_DEG,
             "results": results}
     emit(info)
@@ -444,10 +479,7 @@ def phase_timing(dev: dict, model: api.CVMModel, out: Path | None) -> dict:
         res[label] = {"pairs_per_s": BATCH * n / dt, "predict_batch_ms": dt / n * 1e3,
                       "forward_readout_ms": fwd, "after": smi}
     torch.backends.cudnn.allow_tf32 = False
-    try:    # a diagnostic, not a check: a failing profiler fails no phase
-        res["profile"] = _profile(model, grd, sat, out)
-    except Exception as e:  # noqa: BLE001
-        res["profile"] = {"error": repr(e)}
+    res["profile"] = _profile(model, grd, sat, out)
     emit(res)
     return res
 
@@ -471,7 +503,8 @@ def _profile(model, grd, sat, out: Path | None) -> dict:
     if out is not None:
         (out / "profile.txt").write_text(events.table(sort_by=attr, row_limit=60))
         prof.export_chrome_trace(str(out / "trace.json"))
-    mine = [r for r in rows if "match_row_kernel" in r[0] or "match_warp_kernel" in r[0]]
+    mine = [r for r in rows if any(k in r[0] for k in
+                                   ("match_row_kernel", "match_warp_kernel", "match_tile_kernel"))]
     return {"device_ms_per_call": busy, "wall_ms_per_call_profiled": wall_ms,
             "matching_kernels_ms_per_call": sum(r[1] for r in mine),
             "matching_kernel_launches_per_call": sum(r[2] for r in mine),
@@ -503,8 +536,13 @@ def main(argv=None) -> int:
     model, net = phase_model(dev)
     timing = phase_timing(dev, net, args.out)
     summary = kern["summary"]
-    for row, key in zip(summary, ("matching_epilogue", "matching_scores")):
-        row["launches"] = model["launches"][key]
+    per = model["launches_per_setting"]   # (K1, K2) per setting
+    summary[0]["launches"] = model["launches"]["matching_epilogue"]
+    summary[1]["launches"] = per[json.dumps(dict(ori_noise=36.0))][1]
+    summary[2]["launches"] = per[json.dumps(dict(fov=180.0))][1]
+    if summary[1]["launches"] + summary[2]["launches"] != model["launches"]["matching_scores"]:
+        raise AssertionError(f"K2 launches {model['launches']} are not the prior's and "
+                             f"fov=180's ({summary[1]['launches']}, {summary[2]['launches']})")
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(json.dumps(
             {"device": dev, "kernels": kern, "model": model, "timing": timing,

@@ -84,13 +84,80 @@ def test_scores_kernel_matches_plain(dev, layout, dtype, cs, cg, shift, offsets,
     torch.testing.assert_close(got.float(), want, **tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hw,cs,shift,offsets", [
+    (8, (64, 64), 160, 8, range(20)),      # the three fine VIGOR scales
+    (8, (128, 128), 80, 4, range(20)),
+    (8, (256, 256), 40, 2, range(20)),
+    (1, (256, 256), 40, 2, range(-2, 3)),  # 5 bins: score spans off the granule
+    (3, (41, 41), 40, 2, range(-2, 3)),    # ragged HW
+    (3, (66, 66), 80, 4, range(21)),       # ragged HW, 21 bins
+    (1, (5, 7), 40, 2, range(20)),         # HW smaller than one tile
+    (3, (9, 9), 160, 8, range(1)),         # 1 bin
+    (1, (33, 31), 80, 4, range(32)),       # 32 bins
+])
+def test_tile_layout_matches_plain(dev, dtype, b, hw, cs, shift, offsets):
+    x, g = _inputs(dev, b, hw, cs, cs, seed=cs + b, dtype=dtype)
+    x[0, 0, 0] = 0          # zero rows: the 1e-12 clamps give 0, not NaN
+    x[-1, -1, -1] = 0
+    before = MC.LAUNCHES_BY_LAYOUT["matching_epilogue", "tile"]
+    got = MC.launch_matching_epilogue(x, g, shift, tuple(offsets), "first", "tile")
+    torch.cuda.synchronize()
+    assert MC.LAUNCHES_BY_LAYOUT["matching_epilogue", "tile"] == before + 1
+    want = TM.matching_epilogue_plain(x.float(), g.float(), shift, offsets)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    for a, w in zip(got, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        torch.testing.assert_close(a.float(), w, **tol)
+    scores, _, xnorm = got
+    assert not scores[0, 0, 0].float().any() and not xnorm[0, 0, 0].float().any()
+
+
+def test_tile_layout_refuses_what_it_does_not_take(dev):
+    x, g = _inputs(dev, 2, (16, 16), 40, 40, seed=5)
+    with pytest.raises(ValueError, match="'warp' or 'row'"):
+        MC.launch_matching_scores(x, g, 2, tuple(range(20)), "first", "tile")
+    for cs, dtype in ((42, torch.float32), (36, torch.bfloat16)):
+        xo, go = _inputs(dev, 2, (16, 16), cs, cs, seed=6, dtype=dtype)
+        with pytest.raises(ValueError, match="tile layout"):
+            MC.launch_matching_epilogue(xo, go, 2, tuple(range(20)), "first", "tile")
+    flat = torch.zeros(2 * 16 * 16 * 40 + 1, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        MC.launch_matching_epilogue(flat[1:].view(2, 16, 16, 40), g, 2, tuple(range(20)),
+                                    "first", "tile")
+
+
+def test_python_plans_match_the_library(dev):
+    lib = MC._kernels()
+    assert MC.device_limits(0).sms == torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        item = torch.empty((), dtype=dtype).element_size()
+        for cs in (8, 40, 80, 160, 320):
+            for bins in (1, 5, 20, 21, 32):
+                assert MC.row_smem_bytes(cs, cs, bins) == lib.ccvpe_match_row_smem_bytes(cs, bins, 0)
+                assert MC.row_smem_bytes(cs, cs // 2, bins) == lib.ccvpe_match_row_smem_bytes(
+                    cs, bins, 1)
+                plan = MC.tile_plan((8, 64, 64, cs), bins, dtype, MC.device_limits(0))
+                for rows in MC.TILE_ROWS:
+                    assert MC.tile_smem_bytes(cs, bins, item, rows) == \
+                        lib.ccvpe_match_tile_smem_bytes(cs, bins, code, rows)
+                if plan is not None:
+                    # the plan never asks for more resident blocks than the
+                    # occupancy calculator (registers included) allows
+                    occ = lib.ccvpe_match_tile_blocks_per_sm(cs, bins, code, plan.rows, plan.smem)
+                    assert 1 <= plan.blocks_per_sm <= occ, (cs, bins, dtype, plan, occ)
+
+
 def test_automatic_layout_and_grad_free_dispatch(dev):
     x, g = _inputs(dev, 8, (256, 256), 40, 40, seed=3)
-    assert MC.pick_layout(x, 40, 20) == "row"
-    assert MC.pick_layout(x[:, :8, :8].contiguous(), 40, 20) == "warp"
+    assert MC.pick_layout("matching_epilogue", x, 40, 20) == "tile"
+    assert MC.pick_layout("matching_scores", x, 40, 20) == "row"
+    assert MC.pick_layout("matching_epilogue", x[:, :8, :8].contiguous(), 40, 20) == "warp"
     before = MC.LAUNCHES["matching_epilogue"]
+    tile = MC.LAUNCHES_BY_LAYOUT["matching_epilogue", "tile"]
     s, _, _ = TM.matching_epilogue(x, g, 2, range(20))
     assert MC.LAUNCHES["matching_epilogue"] == before + 1
+    assert MC.LAUNCHES_BY_LAYOUT["matching_epilogue", "tile"] == tile + 1
     torch.testing.assert_close(s, TM.matching_epilogue_plain(x, g, 2, range(20))[0], **F32_TOL)
 
 
