@@ -19,8 +19,8 @@
 // matters is to read X once, write each output once, and keep the
 // instructions per element few enough that the FMA pipes are not the limit.
 // Three layouts, chosen by the wrapper from the shape (all compute the same
-// function in f32, equal to within an ulp per output); the third, tile, is
-// K1's only:
+// function in f32, equal to within an ulp per output, K2's tile within a
+// few):
 //
 //   * warp layout (large Cs, few pixel rows: the coarse scales): one block
 //     per (tile of rows, sample b); g_b, zero-padded to Cs and stored twice,
@@ -45,8 +45,9 @@
 // 1 / max(||X||, 1e-12), computed once per row: within an ulp of the
 // division, which would cost several instructions per element.
 //
-//   * tile layout (K1 only, the fine scales; chosen over `row` where it
-//     measured faster): persistent, double-buffered, one read of x.  It is
+//   * tile layout (the fine scales, and K2 at 320 channels; chosen over
+//     `row` and `warp` where it measured faster): persistent,
+//     double-buffered, one read of x.  K1's (match_tile_kernel) is
 //     bound by bytes like the others; each choice cuts a cost that kept the
 //     row layout from the memory rate:
 //       - blocks live long: the grid is (blocks resident on the card /
@@ -65,6 +66,30 @@
 //         reciprocal per row (within an ulp of the division per bin);
 //       - all three outputs leave from shared memory in 16-byte stores,
 //         xnorm from the staged tile itself: no second read of x.
+//     K2's (match_scores_tile_kernel) shares the ring, the copies and the
+//     stores, with no smax and no xnorm, and differs in three ways:
+//       - a thread may take R = 2 rows (rows t and t + threads of the
+//         tile), so one float4 of W feeds 8 FMAs; the ring may have one
+//         stage (the next tile's copy starts once the tile is computed,
+//         and the SM's other blocks compute meanwhile); the wrapper's plan
+//         picks threads, R and stages per shape from times on the card;
+//       - the window norm when Cg < Cs comes from segments: the window
+//         edges k_i and (k_i + Cg) mod Cs, with channel 0, cut the row into
+//         at most 2 bins + 1 runs of channels, and every window is a cyclic
+//         run of whole segments (matching_cuda.window_segments).  After the
+//         products, a second pass over the staged row sums X^2 per segment
+//         (the segment ends are one bit per channel, the same for every
+//         thread, so the flush is a predicated store, not a branch); then
+//         per block of segments (as long as the shortest window) the
+//         prefix sums P and suffix sums Q; bin i's sq is Q of its first
+//         segment, Q of the first segment of each whole block it spans and
+//         P of its last segment (matching_cuda.window_blocks).  All are
+//         sums of non-negative terms, never differences of prefix sums, so
+//         a window of zeros gives exactly 0 (a difference could come out a
+//         few ulps below 0, and sqrt NaN) and a small window beside large
+//         values loses no accuracy to cancellation;
+//       - the scale is min(rsqrt(sq) / ||g_b||, 1e12), within 2 ulp of the
+//         clamped division.
 //     Alignment: x, xnorm and a tile's span of them are 16-byte aligned
 //     because Cs * sizeof(T) is a multiple of 16 (the wrapper refuses
 //     other Cs).  A span of scores (R * bins) or smax (R) starts anywhere:
@@ -84,7 +109,8 @@
 //     gives scores 0 and xnorm 0, not NaN;
 //   * centred window (Oxford): the mask (c - k_i) mod Cs < Cg is computed
 //     from k_i (inline in the warp layout, once per block into M in the row
-//     layout); no mask array comes from the host;
+//     layout); the tile layout's segment table comes from the host by value,
+//     like k_i, and nothing is copied to the device per call;
 //   * ||g_b||: reduced in the block while g_b is staged.
 //
 // Inputs are f32 or bf16; accumulation is f32; outputs are in x's dtype.
@@ -108,9 +134,23 @@ constexpr int kUnroll = 8;                // warp layout: loads in flight per la
 constexpr int kTileMaxRows = 128;         // tile layout: rows per tile = threads per block
 constexpr int kTileStages = 2;            // tile layout: tiles in the shared-memory ring
 constexpr int kTileMinBlocks = 4;         // tile layout: blocks per SM the registers allow
+constexpr int kMaxSegs = 2 * kMaxBins + 1;  // K2's window segments: edges k_i, k_i + Cg and 0
 
 struct BinShifts {
   int k[kMaxBins];  // k_i for i < bins; 0 (any valid shift) beyond
+};
+
+// K2's windows as runs of segments (matching_cuda.window_segments and
+// window_blocks).  Segments fall into blocks of `block` (the last may be
+// shorter); P[j] sums the segments of j's block up to j, Q[j] those from j.
+struct Windows {
+  int n;                    // segments; 1 where Cg == Cs (the whole row)
+  int end[kMaxSegs + 2];    // segment j is channels [end[j - 1] (0 for j = 0), end[j]); 0 beyond
+  int block;
+  int suffix[kMaxBins];     // bin i's sq: Q[suffix[i]], plus Q of the first segment of
+  int whole[kMaxBins];      //   blocks whole[i], whole[i] + 1, ... (nwhole[i] of them),
+  int nwhole[kMaxBins];     //   plus P[prefix[i]] unless prefix[i] < 0
+  int prefix[kMaxBins];
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -629,6 +669,300 @@ match_tile_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restric
   }
 }
 
+// ------------------------------------------------------ tile layout, K2
+
+struct ScoresTileSmem {  // byte offsets into the dynamic shared memory
+  int stage, w, sc, seg, ends, gs, total;
+};
+
+// ccvpe_torch/ops/matching_cuda.py::tile_smem_bytes mirrors this layout:
+// K1's ring, W and scores, no smax and no 1 / ||X||, and where Cg < Cs
+// (nseg > 1) the per-segment sums of X^2 and a bit per channel that marks
+// the last channel of a segment.
+__host__ __device__ inline ScoresTileSmem scores_tile_smem(int cs, int nb, int bins, int rows,
+                                                           int tsize, int stages, int nseg) {
+  const int v = 16 / tsize;  // elements per granule
+  const bool masked = nseg > 1;
+  ScoresTileSmem s;
+  s.stage = 0;                                           // [stages][rows][stride] granules of x
+  s.w = s.stage + stages * rows * tile_stride(cs, tsize) * 16;
+  s.sc = s.w + cs * nb * 4;                              // W [cs][nb] f32
+  s.seg = s.sc + round16((rows * bins + v) * tsize);     // a tile's scores, T, after `lead`
+  s.ends = s.seg + (masked ? 2 * nseg * rows * 4 : 0);   // Q, P [nseg][rows] f32
+  s.gs = s.ends + (masked ? round16((cs + 31) / 32 * 4) : 0);  // [cs] bits: segment ends
+  s.total = s.gs + round16(cs * 4);                      // [cs] descriptor g_b, zero-padded
+  return s;
+}
+
+// R floats at p (R-float aligned), R = 1 or 2, as one shared-memory access
+template <int R>
+__device__ __forceinline__ void load_r(const float* p, float (&v)[R]) {
+  if constexpr (R == 2) {
+    const float2 u = *reinterpret_cast<const float2*>(p);
+    v[0] = u.x, v[1] = u.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void store_r(float* p, const float (&v)[R]) {
+  if constexpr (R == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// K2 with R pixel rows per thread: thread t of a block of blockDim.x
+// threads takes rows t, t + blockDim.x, ... of a tile of R * blockDim.x
+// rows, so that one float4 of W read from shared memory feeds R rows' FMAs.
+// Block (blockIdx.x, b) walks tiles blockIdx.x, blockIdx.x + gridDim.x, ...
+// of sample b.  stages 2: tile t+1's copy is in flight while tile t is
+// computed; stages 1: the next tile's copy starts once this one is
+// computed, while its scores are written (the SM's other blocks compute
+// meanwhile).
+template <typename T, int NB, bool MASKED, int R>
+__global__ void __launch_bounds__(kTileMaxRows, R == 1 ? kTileMinBlocks : 2)
+match_scores_tile_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                         T* __restrict__ scores, int hw, int cs, int cg, int bins, int stages,
+                         BinShifts sh, const __grid_constant__ Windows seg) {
+  constexpr int V = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char tile_smem_buf[];
+  const int threads = blockDim.x, rows = R * threads, tid = threadIdx.x, b = blockIdx.y;
+  const int nseg = MASKED ? seg.n : 1;
+  const ScoresTileSmem L = scores_tile_smem(cs, NB, bins, rows, sizeof(T), stages, nseg);
+  const int gr = cs / V, gp = tile_stride(cs, sizeof(T));
+  uint4* stage = reinterpret_cast<uint4*>(tile_smem_buf + L.stage);
+  float* w = reinterpret_cast<float*>(tile_smem_buf + L.w);
+  T* sc = reinterpret_cast<T*>(tile_smem_buf + L.sc);
+  // S, then Q, and P [segment][thread][R]: a thread's R rows of one segment
+  // are one R-float access
+  float* qs = reinterpret_cast<float*>(tile_smem_buf + L.seg) + tid * R;
+  float* ps = qs + nseg * rows;
+  unsigned* ends = reinterpret_cast<unsigned*>(tile_smem_buf + L.ends);
+  float* gs = reinterpret_cast<float*>(tile_smem_buf + L.gs);
+  const size_t row0 = (size_t)b * hw;  // the sample's first pixel row
+  const uint4* xg = reinterpret_cast<const uint4*>(x + row0 * cs);
+  const int tiles = (hw + rows - 1) / rows;
+
+  // the first tile is in flight while the block builds W, ||g_b|| and the
+  // segment ends
+  int t = blockIdx.x;
+  if (t < tiles) stage_tile(stage, xg + (size_t)t * rows * gr, min(rows, hw - t * rows), gr, gp);
+  cp_async_commit();
+  for (int c = tid; c < cs; c += threads) gs[c] = c < cg ? to_f32(g[(size_t)b * cg + c]) : 0.f;
+  if constexpr (MASKED) {
+    for (int wd = tid; wd < (cs + 31) / 32; wd += threads) {
+      unsigned bits = 0;
+      for (int j = 0; j < nseg; ++j) {
+        const int c = seg.end[j] - 1;  // segment j's last channel
+        if (c >> 5 == wd) bits |= 1u << (c & 31);
+      }
+      ends[wd] = bits;
+    }
+  }
+  __syncthreads();
+  float gsq = 0.f;  // every warp sums ||g_b||^2 itself
+  for (int c = tid & 31; c < cg; c += 32) gsq = fmaf(gs[c], gs[c], gsq);
+  const float gnorm = sqrtf(warp_sum(gsq));
+  const float rgnorm = 1.f / gnorm;  // masked: inf where g_b = 0, clamped per bin
+  // W[c][i] = g_b[(c - k_i) mod cs] (0 outside the window), 0 for i >= bins
+  for (int e = tid; e < cs * NB; e += threads) {
+    const int c = e / NB, i = e - c * NB;
+    float wv = 0.f;
+    if (i < bins) {
+      int j = c - sh.k[i];
+      if (j < 0) j += cs;
+      wv = gs[j];
+    }
+    w[e] = wv;
+  }
+
+  for (int k = 0; t < tiles; t += gridDim.x, ++k) {
+    const int p0 = t * rows, nrows = min(rows, hw - p0);
+    const int slot = stages == 2 ? (k & 1) : 0;
+    const uint4* cur = stage + slot * rows * gp;
+    const int tn = t + gridDim.x;
+    if (stages == 2) {
+      if (tn < tiles)
+        stage_tile(stage + (slot ^ 1) * rows * gp, xg + (size_t)tn * rows * gr,
+                   min(rows, hw - tn * rows), gr, gp);
+      cp_async_commit();
+      cp_async_wait<1>();  // this thread's copies of tile t have landed,
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();       // and every thread's
+    const size_t e0 = row0 + p0;  // the tile's first pixel row in x
+    if (tid < nrows) {
+      // rows tid + j * threads, j < R; those past nrows (the last tile)
+      // are computed from stale shared memory and never written out
+      float acc[R][NB], run[R];
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        run[j] = 0.f;
+#pragma unroll
+        for (int i = 0; i < NB; ++i) acc[j][i] = 0.f;
+      }
+      const uint4* xr = cur + tid * gp;
+      // the products, and X^2 summed over the row (Cg == Cs): no stores in
+      // this loop, so the loads of W and x run ahead of the FMAs
+#pragma unroll 2
+      for (int q = 0; q < gr; ++q) {
+        float v[R][V];
+#pragma unroll
+        for (int j = 0; j < R; ++j) unpack<T>(xr[j * threads * gp + q], v[j]);
+#pragma unroll
+        for (int u = 0; u < V; ++u) {
+          const float4* wc = reinterpret_cast<const float4*>(w + (q * V + u) * NB);
+#pragma unroll
+          for (int i4 = 0; i4 < NB / 4; ++i4) {
+            const float4 wq = wc[i4];
+#pragma unroll
+            for (int j = 0; j < R; ++j) {
+              acc[j][4 * i4 + 0] = fmaf(v[j][u], wq.x, acc[j][4 * i4 + 0]);
+              acc[j][4 * i4 + 1] = fmaf(v[j][u], wq.y, acc[j][4 * i4 + 1]);
+              acc[j][4 * i4 + 2] = fmaf(v[j][u], wq.z, acc[j][4 * i4 + 2]);
+              acc[j][4 * i4 + 3] = fmaf(v[j][u], wq.w, acc[j][4 * i4 + 3]);
+            }
+          }
+          if constexpr (!MASKED) {
+#pragma unroll
+            for (int j = 0; j < R; ++j) run[j] = fmaf(v[j][u], v[j][u], run[j]);
+          }
+        }
+      }
+      T* sr = sc + static_cast<int>(e0 * bins % V) + tid * bins;
+      if constexpr (MASKED) {
+        // X^2 per segment, in a second pass over the staged rows, 16
+        // channels (kGroup granules) loaded at a time: at a segment's last
+        // channel (the same for every thread) the open sums go to S, a
+        // predicated store, no branch
+        constexpr int kGroup = 16 / V;
+        int sg = 0;
+        for (int q0 = 0; q0 < gr; q0 += kGroup) {
+          float v[kGroup][R][V];
+#pragma unroll
+          for (int d = 0; d < kGroup; ++d) {
+#pragma unroll
+            for (int j = 0; j < R; ++j)
+              if (q0 + d < gr) unpack<T>(xr[j * threads * gp + q0 + d], v[d][j]);
+          }
+#pragma unroll
+          for (int d = 0; d < kGroup; ++d) {
+            if (q0 + d < gr) {
+              const int c0 = (q0 + d) * V;
+              const unsigned last = ends[c0 >> 5] >> (c0 & 31);
+#pragma unroll
+              for (int u = 0; u < V; ++u) {
+                const bool end = (last >> u) & 1u;
+#pragma unroll
+                for (int j = 0; j < R; ++j) run[j] = fmaf(v[d][j][u], v[d][j][u], run[j]);
+                if (end) store_r<R>(qs + sg * rows, run);
+#pragma unroll
+                for (int j = 0; j < R; ++j) run[j] = end ? 0.f : run[j];
+                sg += end;
+              }
+            }
+          }
+        }
+        // within each block of segments: P, the prefix sums, and Q, the
+        // suffix sums, in place of S; four segments loaded at a time
+        for (int b0 = 0; b0 < nseg; b0 += seg.block) {
+          const int b1 = min(nseg, b0 + seg.block);
+          float part[R];
+#pragma unroll
+          for (int j = 0; j < R; ++j) part[j] = 0.f;
+          for (int s0 = b0; s0 < b1; s0 += 4) {
+            float sv[4][R];
+#pragma unroll
+            for (int d = 0; d < 4; ++d)
+              if (s0 + d < b1) load_r<R>(qs + (s0 + d) * rows, sv[d]);
+#pragma unroll
+            for (int d = 0; d < 4; ++d) {
+              if (s0 + d < b1) {
+#pragma unroll
+                for (int j = 0; j < R; ++j) part[j] += sv[d][j];
+                store_r<R>(ps + (s0 + d) * rows, part);
+              }
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < R; ++j) part[j] = 0.f;
+          for (int s0 = b1 - 1; s0 >= b0; s0 -= 4) {
+            float sv[4][R];
+#pragma unroll
+            for (int d = 0; d < 4; ++d)
+              if (s0 - d >= b0) load_r<R>(qs + (s0 - d) * rows, sv[d]);
+#pragma unroll
+            for (int d = 0; d < 4; ++d) {
+              if (s0 - d >= b0) {
+#pragma unroll
+                for (int j = 0; j < R; ++j) part[j] += sv[d][j];
+                store_r<R>(qs + (s0 - d) * rows, part);
+              }
+            }
+          }
+        }
+        // each window: a suffix, whole blocks and a prefix, all sums of
+        // non-negative terms, so a window of zeros gives exactly 0; every
+        // bin's sums are loaded before any score is stored
+        const int nblocks = (nseg + seg.block - 1) / seg.block;
+#pragma unroll
+        for (int i0 = 0; i0 < NB; i0 += 4) {
+          float wsq[4][R];  // four bins' sums loaded before their scores are stored
+#pragma unroll
+          for (int d = 0; d < 4; ++d) {
+            const int i = i0 + d;
+            if (i < bins) {
+              load_r<R>(qs + seg.suffix[i] * rows, wsq[d]);
+              if (seg.prefix[i] >= 0) {
+                float p[R];
+                load_r<R>(ps + seg.prefix[i] * rows, p);
+#pragma unroll
+                for (int j = 0; j < R; ++j) wsq[d][j] += p[j];
+              }
+              for (int n = 0, bb = seg.whole[i]; n < seg.nwhole[i]; ++n) {
+                float p[R];
+                load_r<R>(qs + bb * seg.block * rows, p);
+#pragma unroll
+                for (int j = 0; j < R; ++j) wsq[d][j] += p[j];
+                bb = bb + 1 == nblocks ? 0 : bb + 1;
+              }
+            }
+          }
+          // min(1 / sqrt(sq), 1e12 ||g_b||) / ||g_b||: the 1e-12 clamp
+#pragma unroll
+          for (int d = 0; d < 4; ++d)
+            if (i0 + d < bins)
+#pragma unroll
+              for (int j = 0; j < R; ++j)
+                sr[j * threads * bins + i0 + d] =
+                    from_f32<T>(acc[j][i0 + d] * fminf(rsqrtf(wsq[d][j]) * rgnorm, 1e12f));
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          // one reciprocal per row in place of a division per bin
+          const float rden = 1.f / fmaxf(sqrtf(run[j]) * gnorm, 1e-12f);
+#pragma unroll
+          for (int i = 0; i < NB; ++i)
+            if (i < bins) sr[j * threads * bins + i] = from_f32<T>(acc[j][i] * rden);
+        }
+      }
+    }
+    __syncthreads();       // the tile is computed: its stage is free
+    if (stages == 1) {
+      if (tn < tiles) stage_tile(stage, xg + (size_t)tn * rows * gr, min(rows, hw - tn * rows),
+                                 gr, gp);
+      cp_async_commit();
+    }
+    store_span(scores, sc, e0 * bins, nrows * bins);
+    __syncthreads();       // the scores' staging is read out
+  }
+}
+
 // ------------------------------------------------------------- dispatch
 
 int pick_nb(int bins) { return (bins + 3) / 4 * 4; }  // 4, 8, ..., 32
@@ -648,8 +982,16 @@ struct Args {
   int batch, hw, cs, cg, bins, rows_per_block;
   BinShifts sh;
   cudaStream_t st;
-  int tile_rows = 0, tile_grid = 0, tile_smem = 0;  // tile layout: threads, grid.x, bytes
+  int tile_rows = 0, tile_grid = 0, tile_smem = 0;  // tile layout: rows, grid.x, bytes
+  int tile_stages = 2, tile_rpt = 1;                // K2's tile: ring depth, rows per thread
+  Windows seg{};                                    // K2's tile: the window segments
 };
+
+// f(std::integral_constant<int, R>{}) with R = rpt rows per thread (1 or 2)
+template <typename F>
+auto with_rpt(int rpt, F&& f) {
+  return rpt == 1 ? f(std::integral_constant<int, 1>{}) : f(std::integral_constant<int, 2>{});
+}
 
 // Raise a kernel's dynamic shared-memory cap to the device's opt-in maximum
 // and prefer shared memory over L1, once per device (both attributes are
@@ -701,6 +1043,13 @@ void launch(const Args& a, int layout) {
     opt_in_smem<&match_tile_kernel<T, NB>>();
     match_tile_kernel<T, NB><<<dim3(a.tile_grid, a.batch), a.tile_rows, a.tile_smem, a.st>>>(
         x, g, scores, smax, xnorm, a.hw, a.cs, a.bins, a.sh);
+  } else if constexpr (!EPI) {
+    with_rpt(a.tile_rpt, [&](auto r) {
+      constexpr auto kernel = &match_scores_tile_kernel<T, NB, MASKED, decltype(r)::value>;
+      opt_in_smem<kernel>();
+      kernel<<<dim3(a.tile_grid, a.batch), a.tile_rows / a.tile_rpt, a.tile_smem, a.st>>>(
+          x, g, scores, a.hw, a.cs, a.cg, a.bins, a.tile_stages, a.sh, a.seg);
+    });
   }
 }
 
@@ -765,6 +1114,37 @@ extern "C" int ccvpe_match_tile_blocks_per_sm(int cs, int bins, int dtype, int t
   });
 }
 
+// Shared memory (bytes) of K2's tile layout at `tile_rows` rows a tile,
+// `stages` tiles in the ring and nseg window segments (1 where Cg == Cs);
+// the wrapper computes the same in Python (matching_cuda.tile_smem_bytes).
+extern "C" int ccvpe_match_scores_tile_smem_bytes(int cs, int bins, int dtype, int tile_rows,
+                                                  int stages, int nseg) {
+  return scores_tile_smem(cs, pick_nb(bins), bins, tile_rows, dtype == 1 ? 2 : 4, stages, nseg)
+      .total;
+}
+
+// Blocks of K2's tile layout (masked 1 where Cg < Cs, rpt rows per thread)
+// that one SM keeps resident at `threads` threads and smem_bytes a block.
+extern "C" int ccvpe_match_scores_tile_blocks_per_sm(int bins, int dtype, int masked, int rpt,
+                                                     int threads, int smem_bytes) {
+  const auto occupancy = [&](auto t, auto nb, auto m, auto r) {
+    constexpr auto kernel = &match_scores_tile_kernel<decltype(t), decltype(nb)::value,
+                                                      decltype(m)::value, decltype(r)::value>;
+    opt_in_smem<kernel>();
+    int n = -1;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem_bytes);
+    return n;
+  };
+  return with_dtype(dtype, [&](auto t) {
+    return with_nb(bins, [&](auto nb) {
+      return with_rpt(rpt, [&](auto r) {
+        return masked ? occupancy(t, nb, std::true_type{}, r)
+                      : occupancy(t, nb, std::false_type{}, r);
+      });
+    });
+  });
+}
+
 // dtype: 0 = float32, 1 = bfloat16.  layout: 0 = warp, 1 = row, 2 = tile.
 // x [batch, hw, cs] and g [batch, cs] are contiguous; scores [batch, hw,
 // bins], smax [batch, hw], xnorm [batch, hw, cs].  ks holds bins values in
@@ -795,14 +1175,61 @@ extern "C" int ccvpe_match_epilogue(const void* x, const void* g, void* scores,
 }
 
 // x [batch, hw, cs], g [batch, cg] with cg <= cs, scores [batch, hw, bins].
-// layout: 0 = warp, 1 = row (the tile layout is K1's only).
+// layout: 0 = warp, 1 = row, 2 = tile.  The tile layout takes tile_rows
+// rows a tile (tile_rpt rows per thread, 1 or 2, so tile_rows /
+// tile_rpt threads: a multiple of 32, <= 128), tile_grid blocks per sample,
+// tile_bytes of dynamic shared memory (at least the layout's), tile_stages
+// (1 or 2) tiles in its ring, x and scores 16-byte aligned and cs *
+// sizeof(T) a multiple of 16; and the windows (matching_cuda.window_segments
+// and window_blocks): nseg segments (1 where cg == cs) ending at seg_end
+// [nseg] (ascending to cs), blocks of `block` segments, and per bin suffix,
+// prefix, whole and nwhole [bins].  Returns cudaErrorInvalidValue for a
+// plan or table it does not take, else cudaGetLastError().
 extern "C" int ccvpe_match_scores(const void* x, const void* g, void* scores, int batch,
                                   int hw, int cs, int cg, int bins, const int* ks,
-                                  int dtype, int layout, int rows_per_block,
+                                  int dtype, int layout, int rows_per_block, int tile_rows,
+                                  int tile_grid, int tile_bytes, int tile_stages, int tile_rpt,
+                                  int nseg, const int* seg_end, int block, const int* suffix,
+                                  const int* prefix, const int* whole, const int* nwhole,
                                   void* stream) {
-  if (layout != 0 && layout != 1) return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{x, g, scores, nullptr, nullptr, batch, hw, cs, cg, bins, rows_per_block,
-               pack_shifts(ks, bins), static_cast<cudaStream_t>(stream)};
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (layout < 0 || layout > 2) return bad;
+  Args a{x, g, scores, nullptr, nullptr, batch, hw, cs, cg, bins, rows_per_block,
+         pack_shifts(ks, bins), static_cast<cudaStream_t>(stream)};
+  if (layout == 2) {
+    const int tsize = dtype == 1 ? 2 : 4;
+    const int threads = tile_rpt > 0 ? tile_rows / tile_rpt : 0;
+    const bool ok = (tile_rpt == 1 || tile_rpt == 2) &&
+                    threads * tile_rpt == tile_rows && threads >= 32 &&
+                    threads <= kTileMaxRows && threads % 32 == 0 && tile_grid >= 1 &&
+                    (tile_stages == 1 || tile_stages == 2) && (cs * tsize) % 16 == 0 &&
+                    nseg >= 1 && nseg <= kMaxSegs && (cg < cs) == (nseg > 1) &&
+                    seg_end[nseg - 1] == cs && block >= 1 && block <= nseg &&
+                    scores_tile_smem(cs, pick_nb(bins), bins, tile_rows, tsize, tile_stages,
+                                     nseg).total <= tile_bytes;
+    if (!ok) return bad;
+    a.tile_rows = tile_rows;
+    a.tile_grid = tile_grid;
+    a.tile_smem = tile_bytes;
+    a.tile_stages = tile_stages;
+    a.tile_rpt = tile_rpt;
+    a.seg.n = nseg;
+    a.seg.block = block;
+    for (int j = 0; j < nseg; ++j) {
+      if (seg_end[j] <= (j ? seg_end[j - 1] : 0)) return bad;
+      a.seg.end[j] = seg_end[j];
+    }
+    const int nblocks = (nseg + block - 1) / block;
+    for (int i = 0; i < bins; ++i) {
+      if (suffix[i] < 0 || suffix[i] >= nseg || prefix[i] < -1 || prefix[i] >= nseg ||
+          whole[i] < 0 || whole[i] >= nblocks || nwhole[i] < 0 || nwhole[i] > nblocks)
+        return bad;
+      a.seg.suffix[i] = suffix[i];
+      a.seg.prefix[i] = prefix[i];
+      a.seg.whole[i] = whole[i];
+      a.seg.nwhole[i] = nwhole[i];
+    }
+  }
   return cg < cs ? dispatch<false, true>(a, dtype, layout)
                  : dispatch<false, false>(a, dtype, layout);
 }

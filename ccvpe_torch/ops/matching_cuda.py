@@ -6,19 +6,25 @@
   read of x (Cg == Cs; every VIGOR scale).
 * K2, ``matching_scores_cuda``, replaces ``_kernel`` (``pallas_call`` at
   ``:116``): scores alone, with the per-bin masked window norm when Cg < Cs
-  (the ori-prior full-bin bottleneck stack; Oxford and KITTI scales).
+  (the ori-prior full-bin bottleneck stack; the limited-fov VIGOR scales;
+  Oxford and KITTI scales).
 
 Both are bound by device-memory bytes, not arithmetic: at 20 bins they do
 about 4 FLOP per byte they move.  So the kernels read x once and write each
 output once (the design is in the source note of ``matching.cu``).  Each
 kernel has a warp per pixel row for maps with few rows (the coarse scales,
 wide channels) and a thread per pixel row for maps with many (the fine
-scales, narrow channels).  K1 has a third layout for the fine scales,
+scales, narrow channels).  Both have a third layout for the fine scales,
 ``tile``: persistent blocks that copy tiles of rows in 16-byte granules
-through a double-buffered ring and write all outputs from shared memory.
-``pick_layout`` chooses; ``tile_plan`` (tile rows, stages, shared memory,
-grid) and ``choose_layout`` are pure functions of the shape, the bins, the
-dtype and the device's limits, and load no library.
+through a ring in shared memory and write all outputs from there.  K2's
+tile (also at 320 channels) may give a thread two rows and a ring of one
+stage, and takes its window norms from per-segment sums of x^2: the
+channels between two neighbouring window edges form a segment, and each
+bin's window is a cyclic run of whole segments (``window_segments``,
+``window_blocks``).  ``pick_layout`` chooses; ``window_segments``,
+``tile_plan`` (tile rows, rows per thread, stages, shared memory, grid) and
+``choose_layout`` are pure functions of the shape, the bins, the dtype and
+the device's limits, and load no library.
 
 A wrapper takes a CPU tensor to the kernel's plain version in
 ``ops/matching.py``.  For a CUDA tensor it checks device, dtype, shape and
@@ -47,7 +53,7 @@ from .matching import bin_shifts, matching_epilogue_plain, matching_scores_plain
 LAUNCHES = {"matching_epilogue": 0, "matching_scores": 0}
 LAUNCHES_BY_LAYOUT = {("matching_epilogue", "warp"): 0, ("matching_epilogue", "row"): 0,
                       ("matching_epilogue", "tile"): 0, ("matching_scores", "warp"): 0,
-                      ("matching_scores", "row"): 0}
+                      ("matching_scores", "row"): 0, ("matching_scores", "tile"): 0}
 
 MAX_BINS = 32
 MAX_CHANNELS = 4096  # warp layout: 2 * Cs f32 descriptor copies in 48 KB of shared memory
@@ -56,19 +62,32 @@ ROW_LAYOUT_MAX_SMEM = 200 * 1024  # row layout: the kernel's dynamic shared-memo
 # least this many pixel rows per SM (enough 128-row blocks to fill the card).
 # On an H100 the row layout beats the warp layout at the VIGOR scales of 40,
 # 80 and 160 channels and loses at 320 and above (chip_smoke.py's
-# kernel_times); K1 takes its tile layout there wherever its plan applies,
-# which measured faster than the row layout at all three (ms_by_layout).
+# kernel_times); both kernels take their tile layout there wherever its plan
+# applies, which measured faster than the row layout at all three
+# (ms_by_layout).
 ROW_LAYOUT_MAX_CHANNELS = 160
 ROW_LAYOUT_MIN_ROWS_PER_SM = 32
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _LAYOUTS = {"warp": 0, "row": 1, "tile": 2}
 _KERNELS = ("matching_epilogue", "matching_scores")
 
-# Tile layout (K1): these constants are the kernel's (matching.cu).
+# Tile layout: these constants are the kernel's (matching.cu).
 GRANULE = 16                   # bytes of one cp.async copy and one store
-TILE_ROWS = (128, 64, 32)      # rows per tile = threads per block, largest first
-TILE_STAGES = 2                # tiles in the shared-memory ring
+MAX_SEGMENTS = 2 * MAX_BINS + 1  # window edges k_i, k_i + Cg and channel 0
+TILE_ROWS = (128, 64, 32)      # K1: rows per tile = threads per block, largest first
+TILE_STAGES = 2                # K1: tiles in the shared-memory ring
 TILE_MAX_BLOCKS_PER_SM = 4     # __launch_bounds__ minimum: registers allow this many
+# K2's tile plans as (threads, rows per thread, stages), in the order the
+# plan tries them (the first whose shared memory fits one block).  From
+# times on an H100 at the VIGOR scales K2's tile takes (chip_smoke.py's
+# ms_by_tile_plan): two rows per thread, 64 threads and one stage where a
+# row is at most K2_TILE_NARROW bytes; else a row per thread, 128 threads
+# and two stages where they fit.  __launch_bounds__ guarantees 4 blocks of
+# 128 threads at one row per thread and 2 at two.
+K2_TILE_NARROW = 320
+K2_TILE_PLANS_NARROW = ((64, 2, 1),)
+K2_TILE_PLANS = ((128, 1, 2), (128, 1, 1), (64, 1, 2), (64, 1, 1), (32, 1, 2), (32, 1, 1))
+K2_TILE_MAX_CHANNELS = 320     # K2 takes its tile up to 320 channels (32x32x320 VIGOR)
 SMEM_RESERVED_PER_BLOCK = 1024  # shared memory the CUDA runtime keeps per block
 
 
@@ -80,14 +99,40 @@ class DeviceLimits(NamedTuple):
 H100 = DeviceLimits(sms=132, smem_per_sm=228 * 1024)
 
 
+class Segments(NamedTuple):
+    """The window norms of K2 as sums of per-segment sums of x^2.  Segment j
+    is channels [ends[j-1], ends[j]) (from 0 for j = 0); bin i's window is
+    segments first[i], first[i] + 1, ... (mod the count), count[i] of them."""
+    ends: tuple[int, ...]
+    first: tuple[int, ...]
+    count: tuple[int, ...]
+
+
+class WindowBlocks(NamedTuple):
+    """How K2's tile kernel adds up each window from two sums per segment,
+    with no loop over the window's segments.  The segments fall into blocks
+    of ``block`` consecutive ones (the last block may be shorter); within
+    its block, segment j has the prefix sum P[j] (from the block's first
+    segment through j) and the suffix sum Q[j] (from j through the block's
+    last).  Bin i's window is Q[suffix[i]], the blocks whole[i], whole[i] +
+    1, ... (nwhole[i] of them, each Q of its first segment) and, unless
+    prefix[i] is -1, P[prefix[i]]."""
+    block: int
+    suffix: tuple[int, ...]
+    prefix: tuple[int, ...]
+    whole: tuple[int, ...]
+    nwhole: tuple[int, ...]
+
+
 class TilePlan(NamedTuple):
-    rows: int                   # pixel rows per tile = threads per block
+    rows: int                   # pixel rows per tile = threads per block x rpt
     stages: int
     stride: int                 # staged row stride in 16-byte granules (odd)
     smem: int                   # dynamic shared memory per block, bytes
     blocks_per_sm: int          # resident blocks per SM at that shared memory
     tiles: int                  # tiles per sample
     grid: tuple[int, int]       # (blocks per sample, batch)
+    rpt: int = 1                # pixel rows per thread (K2; K1 takes 1)
 
 
 def reset_launch_counts() -> None:
@@ -103,7 +148,8 @@ def _kernels() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ccvpe_match_epilogue.argtypes = [p, p, p, p, p, i, i, i, i, p, i, i, i, i, i, i, p]
     lib.ccvpe_match_epilogue.restype = i
-    lib.ccvpe_match_scores.argtypes = [p, p, p, i, i, i, i, i, p, i, i, i, p]
+    lib.ccvpe_match_scores.argtypes = [p, p, p, i, i, i, i, i, p, i, i, i, i, i, i, i, i,
+                                       i, p, i, p, p, p, p, p]
     lib.ccvpe_match_scores.restype = i
     lib.ccvpe_match_row_smem_bytes.argtypes = [i, i, i]
     lib.ccvpe_match_row_smem_bytes.restype = i
@@ -111,6 +157,10 @@ def _kernels() -> ctypes.CDLL:
     lib.ccvpe_match_tile_smem_bytes.restype = i
     lib.ccvpe_match_tile_blocks_per_sm.argtypes = [i, i, i, i, i]
     lib.ccvpe_match_tile_blocks_per_sm.restype = i
+    lib.ccvpe_match_scores_tile_smem_bytes.argtypes = [i, i, i, i, i, i]
+    lib.ccvpe_match_scores_tile_smem_bytes.restype = i
+    lib.ccvpe_match_scores_tile_blocks_per_sm.argtypes = [i, i, i, i, i, i]
+    lib.ccvpe_match_scores_tile_blocks_per_sm.restype = i
     return lib
 
 
@@ -183,29 +233,98 @@ def tile_stride(cs: int, itemsize: int) -> int:
     return (cs * itemsize // GRANULE) | 1
 
 
-def tile_smem_bytes(cs: int, bins: int, itemsize: int, rows: int) -> int:
-    """Shared memory of the tile layout (matching.cu's ``tile_smem``): the
-    ring of staged tiles, W [Cs][bins padded to 4] f32, a tile's scores and
-    smax (each with up to one granule of lead), 1/||X|| per row and g."""
+def window_segments(cs: int, cg: int, ks) -> Segments:
+    """K2's windows as cyclic runs of segments.  The window of bin i is the
+    Cg channels from k_i on, cyclically, so its edges k_i and (k_i + Cg) mod
+    Cs, with channel 0, cut [0, Cs) into segments (at most 2 bins + 1), and
+    every window is a run of whole segments.  Where Cg == Cs there is one
+    segment, the whole row.  Sums of non-negative segment sums, never
+    differences of prefix sums, so a window of zeros gives exactly 0."""
+    ks = tuple(int(k) for k in ks)
+    if not 0 < cg <= cs or any(not 0 <= k < cs for k in ks):
+        raise ValueError(f"need 0 < Cg <= Cs and 0 <= k_i < Cs, got Cs={cs}, Cg={cg}, k={ks}")
+    if cg == cs:
+        return Segments((cs,), (0,) * len(ks), (1,) * len(ks))
+    starts = sorted({0, *ks, *((k + cg) % cs for k in ks)})
+    index = {c: j for j, c in enumerate(starts)}
+    n = len(starts)
+    first = tuple(index[k] for k in ks)
+    count = tuple((index[(k + cg) % cs] - index[k]) % n for k in ks)
+    return Segments((*starts[1:], cs), first, count)
+
+
+def window_blocks(seg: Segments) -> WindowBlocks:
+    """The pieces of each window (``WindowBlocks``).  Blocks are as long as
+    the shortest window, so no window starts and ends inside one block: each
+    is a suffix, whole blocks and a prefix, all sums of non-negative terms.
+    Where every window has the same count and the count divides the
+    segments (the VIGOR windows), that is two sums per bin."""
+    n = len(seg.ends)
+    block = min(seg.count)
+    nblocks = -(-n // block)
+    suffix, prefix, whole, nwhole = [], [], [], []
+    for f, c in zip(seg.first, seg.count):
+        end = min(n, (f // block + 1) * block)       # end of f's block
+        left, pos = c - (end - f), end % n
+        suffix.append(f)
+        whole.append(pos // block)
+        k = 0
+        while left and left >= min(block, n - pos):  # whole blocks
+            left -= min(block, n - pos)
+            pos = (pos + min(block, n - pos)) % n
+            k += 1
+        nwhole.append(k)
+        prefix.append(pos + left - 1 if left else -1)
+    assert all(0 <= w < nblocks for w in whole)
+    return WindowBlocks(block, tuple(suffix), tuple(prefix), tuple(whole), tuple(nwhole))
+
+
+def max_segments(cs: int, cg: int, bins: int) -> int:
+    """The most segments ``window_segments`` gives for ``bins`` windows."""
+    return 1 if cg == cs else 2 * bins + 1
+
+
+def tile_smem_bytes(cs: int, bins: int, itemsize: int, rows: int,
+                    kernel: str = "matching_epilogue", nseg: int = 1,
+                    stages: int = TILE_STAGES) -> int:
+    """Shared memory of the tile layout (matching.cu's ``tile_smem`` for K1,
+    ``scores_tile_smem`` for K2): the ring of ``stages`` staged tiles, W
+    [Cs][bins padded to 4] f32, a tile's scores (with up to one granule of
+    lead), then K1's smax (the same lead) and 1/||X|| per row, or, where K2
+    has more than one segment, its prefix and suffix sums of x^2 per segment
+    and row and a bit per channel marking the segments' ends; last g."""
     v = GRANULE // itemsize
-    return (TILE_STAGES * rows * tile_stride(cs, itemsize) * GRANULE + cs * _nb(bins) * 4
-            + _round16((rows * bins + v) * itemsize) + _round16((rows + v) * itemsize)
-            + rows * 4 + _round16(cs * 4))
+    epi = kernel == "matching_epilogue"
+    return (stages * rows * tile_stride(cs, itemsize) * GRANULE + cs * _nb(bins) * 4
+            + _round16((rows * bins + v) * itemsize)
+            + (_round16((rows + v) * itemsize) + rows * 4 if epi else 0)
+            + (2 * nseg * rows * 4 + _round16(-(-cs // 32) * 4) if not epi and nseg > 1 else 0)
+            + _round16(cs * 4))
 
 
-def tile_plan(shape, bins: int, dtype: torch.dtype,
-              limits: DeviceLimits = H100) -> TilePlan | None:
-    """Launch plan of K1's tile layout for x of ``shape`` [B,H,W,Cs], or None
-    where it does not apply: Cs * itemsize not a multiple of 16 bytes, or
-    no tile that fits one block's shared memory.  Of the tile sizes that
-    fit, the one with the most rows resident per SM (the larger on a tie).
+def _k2_reg_blocks(threads: int, rpt: int) -> int:
+    """Blocks per SM that K2's tile kernel's registers allow at least (its
+    __launch_bounds__)."""
+    return (TILE_MAX_BLOCKS_PER_SM if rpt == 1 else 2) * 128 // threads
+
+
+def tile_plan(shape, bins: int, dtype: torch.dtype, limits: DeviceLimits = H100,
+              kernel: str = "matching_epilogue", nseg: int = 1) -> TilePlan | None:
+    """Launch plan of the tile layout of ``kernel`` (K2: with ``nseg``
+    window segments) for x of ``shape`` [B,H,W,Cs], or None where it does
+    not apply: Cs * itemsize not a multiple of 16 bytes, or no tile that
+    fits one block's shared memory.  K1: of the tile sizes that fit, the one
+    with the most rows resident per SM (the larger on a tie); K2: the first
+    of its plans (``K2_TILE_PLANS_NARROW``, ``K2_TILE_PLANS``) that fits.
     The grid keeps every block resident: (resident blocks // B) blocks per
-    sample, at least 1 and at most the sample's tiles.  A pure function:
-    it loads no library, so the CPU tests reach it."""
+    sample, at least 1 and at most the sample's tiles.  A pure function: it
+    loads no library, so the CPU tests reach it."""
     b, h, w, cs = shape
     itemsize = torch.empty((), dtype=dtype).element_size()
-    if (cs * itemsize) % GRANULE or not 1 <= bins <= MAX_BINS:
+    if (cs * itemsize) % GRANULE or not 1 <= bins <= MAX_BINS or not 1 <= nseg <= MAX_SEGMENTS:
         return None
+    if kernel == "matching_scores":
+        return _k2_tile_plan(shape, bins, itemsize, limits, nseg)
     cap = limits.smem_per_sm - SMEM_RESERVED_PER_BLOCK
     best = None
     for rows in TILE_ROWS:
@@ -225,21 +344,43 @@ def tile_plan(shape, bins: int, dtype: torch.dtype,
                     (per_sample, b))
 
 
+def _k2_tile_plan(shape, bins: int, itemsize: int, limits: DeviceLimits,
+                  nseg: int) -> TilePlan | None:
+    b, h, w, cs = shape
+    cap = limits.smem_per_sm - SMEM_RESERVED_PER_BLOCK
+    narrow = cs * itemsize <= K2_TILE_NARROW
+    for threads, rpt, stages in (K2_TILE_PLANS_NARROW if narrow else ()) + K2_TILE_PLANS:
+        rows = threads * rpt
+        smem = tile_smem_bytes(cs, bins, itemsize, rows, "matching_scores", nseg, stages)
+        if smem <= cap:
+            per_sm = min(_k2_reg_blocks(threads, rpt),
+                         limits.smem_per_sm // (smem + SMEM_RESERVED_PER_BLOCK))
+            tiles = -(-(h * w) // rows)
+            per_sample = max(1, min(tiles, limits.sms * per_sm // b))
+            return TilePlan(rows, stages, tile_stride(cs, itemsize), smem, per_sm, tiles,
+                            (per_sample, b), rpt)
+    return None
+
+
 def choose_layout(kernel: str, shape, cg: int, bins: int, dtype: torch.dtype,
-                  limits: DeviceLimits = H100) -> str:
+                  limits: DeviceLimits = H100, nseg: int | None = None) -> str:
     """The layout ``pick_layout`` takes, as a pure function of the call:
-    a warp per row for maps with few rows or wide channels; else K1 takes
-    the tile layout where its plan applies, and otherwise (and K2 always)
-    the row layout where its W (and mask) fit."""
+    a warp per row for maps with few rows or wide channels (K1: over 160,
+    K2: over 320); else the tile layout where its plan applies (K2: with
+    ``nseg`` window segments, or as many as ``bins`` windows can make), and
+    otherwise, up to 160 channels, the row layout where its W (and mask)
+    fit."""
     if kernel not in _KERNELS:
         raise ValueError(f"kernel must be one of {_KERNELS}, got {kernel!r}")
     b, h, w, cs = shape
     many = b * h * w >= ROW_LAYOUT_MIN_ROWS_PER_SM * limits.sms
-    if not many or cs > ROW_LAYOUT_MAX_CHANNELS:
+    widest = K2_TILE_MAX_CHANNELS if kernel == "matching_scores" else ROW_LAYOUT_MAX_CHANNELS
+    if not many or cs > widest:
         return "warp"
-    if kernel == "matching_epilogue" and tile_plan(shape, bins, dtype, limits) is not None:
+    nseg = max_segments(cs, cg, bins) if nseg is None else nseg
+    if tile_plan(shape, bins, dtype, limits, kernel, nseg) is not None:
         return "tile"
-    return "row" if row_layout_fits(cs, cg, bins) else "warp"
+    return "row" if cs <= ROW_LAYOUT_MAX_CHANNELS and row_layout_fits(cs, cg, bins) else "warp"
 
 
 def pick_layout(kernel: str, x: torch.Tensor, cg: int, bins: int) -> str:
@@ -250,19 +391,18 @@ def pick_layout(kernel: str, x: torch.Tensor, cg: int, bins: int) -> str:
 
 
 def _layout(kernel: str, shape, cg: int, bins: int, dtype, layout: str | None,
-            limits: DeviceLimits) -> str:
-    """``layout`` None picks as ``pick_layout`` says; 'warp', 'row' or (K1
-    only) 'tile' forces one, and raises where it does not apply."""
+            limits: DeviceLimits, nseg: int = 1) -> str:
+    """``layout`` None picks as ``pick_layout`` says; 'warp', 'row' or 'tile'
+    forces one, and raises where it does not apply."""
     if layout is None:
-        return choose_layout(kernel, shape, cg, bins, dtype, limits)
+        return choose_layout(kernel, shape, cg, bins, dtype, limits, nseg)
     cs = shape[-1]
-    if layout not in _LAYOUTS or (layout == "tile" and kernel != "matching_epilogue"):
-        allowed = "'warp', 'row' or 'tile'" if kernel == "matching_epilogue" else "'warp' or 'row'"
-        raise ValueError(f"{kernel} takes layout {allowed}, got {layout!r}")
+    if layout not in _LAYOUTS:
+        raise ValueError(f"{kernel} takes layout 'warp', 'row' or 'tile', got {layout!r}")
     if layout == "row" and not row_layout_fits(cs, cg, bins):
         raise ValueError(f"the row layout's shared memory does not fit Cs={cs}, "
                          f"{bins} bins{' (masked)' if cg < cs else ''}")
-    if layout == "tile" and tile_plan(shape, bins, dtype, limits) is None:
+    if layout == "tile" and tile_plan(shape, bins, dtype, limits, kernel, nseg) is None:
         raise ValueError(f"the tile layout does not take Cs={cs} in {dtype}: a row must "
                          f"be whole {GRANULE}-byte granules and its tiles must fit "
                          f"shared memory")
@@ -275,6 +415,11 @@ class _Plan(NamedTuple):
     layout: str
     rows_per_block: int   # warp layout
     tile: TilePlan | None
+    windows: tuple  # K2's tile: segments, their ends, then WindowBlocks' fields as C ints
+
+
+def _c_ints(values) -> ctypes.Array:
+    return (ctypes.c_int * len(values))(*values)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -283,11 +428,26 @@ def _plan(kernel: str, shape, dtype, cg: int, shift: int, offsets: tuple[int, ..
     """What a launch needs beyond the pointers, for one call signature (the
     forward repeats a handful of them)."""
     ks = bin_shifts(shape[-1], cg, shift, offsets, window)
+    seg = window_segments(shape[-1], cg, ks)
+    nseg = len(seg.ends)
     limits = device_limits(device_index)
-    layout = _layout(kernel, shape, cg, len(ks), dtype, layout, limits)
-    tile = tile_plan(shape, len(ks), dtype, limits) if layout == "tile" else None
-    return _Plan((ctypes.c_int * len(ks))(*ks), len(ks), layout,
-                 _rows_per_block(shape, limits.sms), tile)
+    layout = _layout(kernel, shape, cg, len(ks), dtype, layout, limits, nseg)
+    tile = tile_plan(shape, len(ks), dtype, limits, kernel, nseg) if layout == "tile" else None
+    wb = window_blocks(seg)
+    return _Plan(_c_ints(ks), len(ks), layout, _rows_per_block(shape, limits.sms), tile,
+                 (nseg, _c_ints(seg.ends), wb.block, _c_ints(wb.suffix), _c_ints(wb.prefix),
+                  _c_ints(wb.whole), _c_ints(wb.nwhole)))
+
+
+def _check_aligned(plan: _Plan, x: torch.Tensor) -> None:
+    if plan.tile is not None and x.data_ptr() % GRANULE:
+        raise ValueError(f"the tile layout needs x {GRANULE}-byte aligned; this x starts "
+                         f"at byte {x.data_ptr() % GRANULE} of a granule")
+
+
+def _tile_args(plan: _Plan) -> tuple[int, int, int]:
+    """(rows, blocks per sample, shared memory) of a tile launch, else 0s."""
+    return (plan.tile.rows, plan.tile.grid[0], plan.tile.smem) if plan.tile else (0, 0, 0)
 
 
 def _raise_on(rc: int, kernel: str) -> None:
@@ -304,19 +464,16 @@ def launch_matching_epilogue(x, g, shift, offsets, window, layout=None):
         raise ValueError(f"matching_epilogue needs Cg == Cs, got {g.shape[1]} != {cs}")
     plan = _plan("matching_epilogue", tuple(x.shape), x.dtype, cs, shift, offsets, window,
                  layout, x.device.index or 0)
-    if plan.tile is not None and x.data_ptr() % GRANULE:
-        raise ValueError(f"the tile layout needs x {GRANULE}-byte aligned; this x starts "
-                         f"at byte {x.data_ptr() % GRANULE} of a granule")
+    _check_aligned(plan, x)
     scores = torch.empty((b, h, w, plan.bins), dtype=x.dtype, device=x.device)
     smax = torch.empty((b, h, w, 1), dtype=x.dtype, device=x.device)
     xnorm = torch.empty((b, h, w, cs), dtype=x.dtype, device=x.device)
-    tile = (plan.tile.rows, plan.tile.grid[0], plan.tile.smem) if plan.tile else (0, 0, 0)
     with torch.cuda.device(x.device):
         rc = _kernels().ccvpe_match_epilogue(
             x.data_ptr(), g.data_ptr(), scores.data_ptr(), smax.data_ptr(),
             xnorm.data_ptr(), b, h * w, cs, plan.bins, ctypes.addressof(plan.ks),
             _DTYPE_CODES[x.dtype], _LAYOUTS[plan.layout], plan.rows_per_block,
-            *tile,
+            *_tile_args(plan),
             torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(rc, "matching_epilogue")
     LAUNCHES["matching_epilogue"] += 1
@@ -332,12 +489,16 @@ def launch_matching_scores(x, g, shift, offsets, window, layout=None):
     cg = g.shape[1]
     plan = _plan("matching_scores", tuple(x.shape), x.dtype, cg, shift, offsets, window,
                  layout, x.device.index or 0)
+    _check_aligned(plan, x)
     scores = torch.empty((b, h, w, plan.bins), dtype=x.dtype, device=x.device)
+    nseg, ends, block, *pieces = plan.windows
     with torch.cuda.device(x.device):
         rc = _kernels().ccvpe_match_scores(
             x.data_ptr(), g.data_ptr(), scores.data_ptr(), b, h * w, cs, cg,
             plan.bins, ctypes.addressof(plan.ks), _DTYPE_CODES[x.dtype],
-            _LAYOUTS[plan.layout], plan.rows_per_block,
+            _LAYOUTS[plan.layout], plan.rows_per_block, *_tile_args(plan),
+            *((plan.tile.stages, plan.tile.rpt) if plan.tile else (0, 0)),
+            nseg, ctypes.addressof(ends), block, *map(ctypes.addressof, pieces),
             torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(rc, "matching_scores")
     LAUNCHES["matching_scores"] += 1

@@ -7,16 +7,19 @@ Phases, each printing one JSON line:
 
 1. device:  the card's name and power limit (``nvidia-smi``), torch and CUDA.
 2. build:   ``nvcc`` builds the matching kernels from ``ccvpe_torch/csrc``.
-3. kernels: each kernel, in every layout that takes the shape (K1: warp,
-   row, tile; K2: warp, row), against its plain PyTorch version on the
-   card, at the VIGOR shapes (batch 8), the ori-prior bottleneck, the Oxford
-   and KITTI masked windows and ragged maps (K1's tile layout also at
-   batch 3, 41x41 and 66x66, 5 and 21 bins), in float32 and bfloat16; then
-   times of each layout, the plain version and ``torch.bmm`` (a yardstick
-   only) beside the least time the card could take.
+3. kernels: each kernel, in every layout that takes the shape (warp, row,
+   tile), against its plain PyTorch version on the card, at the VIGOR shapes
+   (batch 8; K2 with the fov=180 masked window), the ori-prior bottleneck,
+   the Oxford and KITTI masked windows at coarse and fine scales and ragged
+   maps (the tile layouts also at batch 3, 41x41 and 66x66, 5 and 21 bins),
+   with a zero row and, for a masked window, a row that is zero inside one
+   bin's window only, in float32 and bfloat16; then times of each layout,
+   the plain version and ``torch.bmm`` (a yardstick only) beside the least
+   time the card could take.
 4. model:   ``ccvpe_torch.api.load_model(preset="VIGOR", seed=0)`` on the
    card; ``predict_batch`` at batch 8 with ``ori_noise`` 180 and 36 and with
-   ``fov=180``, counting kernel launches by kernel and by layout, held
+   ``fov=180``, counting kernel launches by kernel and by layout (K1: tile
+   at the three fine scales; K2 at fov=180: tile at four, warp at two), held
    against the same model with matching forced to the plain versions; and a
    NANO model on the card held against the same model on the CPU.
 5. timing:  steady-state ``predict_batch`` pairs/s at batch 8 in float32,
@@ -187,8 +190,33 @@ def _check(name, got, want, dtype) -> float:
 def _layouts(kernel, shape, cg, bins, dtype) -> list[str]:
     """Every layout of ``kernel`` ('K1' or 'K2') that takes the shape."""
     cs = shape[-1]
+    tile = MC.tile_plan(shape, bins, dtype, kernel=KERNEL_NAMES[kernel],
+                        nseg=MC.max_segments(cs, cg, bins))
     return (["warp"] + (["row"] if MC.row_layout_fits(cs, cg, bins) else [])
-            + (["tile"] if kernel == "K1" and MC.tile_plan(shape, bins, dtype) else []))
+            + (["tile"] if tile else []))
+
+
+def _tile_plan_times(x, g, shift) -> dict:
+    """Device ms of K2's tile layout at each plan it can take (threads, rows
+    per thread, stages), each forced in turn; the plan the wrapper takes by
+    itself is the first of its lists that fits."""
+    lists = MC.K2_TILE_PLANS_NARROW, MC.K2_TILE_PLANS
+    times = {}
+    try:
+        for threads, rpt, stages in lists[0] + lists[1]:
+            MC.K2_TILE_PLANS_NARROW, MC.K2_TILE_PLANS = (), ((threads, rpt, stages),)
+            MC._plan.cache_clear()
+            try:
+                plan = MC._plan("matching_scores", tuple(x.shape), x.dtype, g.shape[1], shift,
+                                tuple(range(20)), "first", "tile", x.device.index or 0).tile
+            except ValueError:   # does not fit one block's shared memory
+                continue
+            times[f"t{threads} r{rpt} s{stages} b{plan.blocks_per_sm}"] = device_ms(
+                lambda: MC.launch_matching_scores(x, g, shift, tuple(range(20)), "first", "tile"))
+    finally:
+        MC.K2_TILE_PLANS_NARROW, MC.K2_TILE_PLANS = lists
+        MC._plan.cache_clear()
+    return times
 
 
 def _bound(nbytes: float, flops: float, dev: dict) -> tuple[float, str]:
@@ -205,6 +233,12 @@ def phase_kernels(dev: dict) -> dict:
     def run(kernel, b, hw, cs, cg, shift, offsets, window, dtype, seed):
         x, g = _inputs(b, hw, cs, cg, seed, dtype)
         offsets = tuple(offsets)
+        masked = cg < cs
+        if masked:
+            # the last row is zero inside bin 1's window only: its score is
+            # exactly 0 there (a difference of prefix sums could give NaN)
+            k1 = TM.bin_shifts(cs, cg, shift, offsets, window)[1]
+            x[-1, -1, -1, (torch.arange(cg, device=x.device) + k1) % cs] = 0
         xf, gf = x.float(), g.float()
         if kernel == "K1":
             want = TM.matching_epilogue_plain(xf, gf, shift, offsets, window)
@@ -219,6 +253,9 @@ def phase_kernels(dev: dict) -> dict:
             name = (f"{kernel} {layout} x{[b, *hw, cs]} g{[b, cg]} shift {shift} offsets "
                     f"{offsets[0]}..{offsets[-1]} {window} {str(dtype)[6:]}")
             err = _check(name, got, want, dtype)
+            if masked and got[0][-1, -1, -1, 1].item() != 0:
+                raise AssertionError(f"{name}: a window of zeros scores "
+                                     f"{got[0][-1, -1, -1, 1].item()}, not 0")
             max_err[kernel, dtype] = max(max_err[kernel, dtype], err)
             checks.append({"check": name, "max_abs_err": err})
 
@@ -231,6 +268,12 @@ def phase_kernels(dev: dict) -> dict:
         run("K2", BATCH, (8, 8), 1280, 1280, 64, range(20), "first", dtype, 10)
         run("K2", BATCH, (8, 8), 1280, 224, 64, range(20), "center", dtype, 11)    # Oxford
         run("K2", BATCH, (8, 8), 2048, 512, 128, range(16), "first", dtype, 12)    # KITTI
+        # the fine Oxford (centred window) and KITTI (16 bins) scales
+        for side, cs, cg, shift in ((64, 160, 28, 8), (128, 80, 14, 4), (256, 40, 7, 2)):
+            run("K2", 2, (side, side), cs, cg, shift, range(20), "center", dtype, 17)
+        for cg, shift in ((64, 16), (32, 8)):
+            run("K2", 2, (64, 64), 128, cg, shift, range(16), "first", dtype, 18)
+        run("K2", 2, (128, 128), 80, 40, 4, range(-2, 3), "first", dtype, 19)
         for kernel in ("K1", "K2"):
             run(kernel, 2, (41, 41), 1280, 1280, 64, range(20), "first", dtype, 13)
             run(kernel, 2, (66, 66), 320, 320, 16, range(20), "first", dtype, 14)
@@ -239,6 +282,8 @@ def phase_kernels(dev: dict) -> dict:
         for offsets in (range(-2, 3), range(21)):
             run("K1", 3, (41, 41), 40, 40, 2, offsets, "first", dtype, 15)
             run("K1", 3, (66, 66), 80, 80, 4, offsets, "first", dtype, 16)
+            run("K2", 3, (41, 41), 40, 20, 2, offsets, "first", dtype, 15)
+            run("K2", 3, (66, 66), 80, 40, 4, offsets, "first", dtype, 16)
     emit({"phase": "kernel_checks", "n": len(checks),
           "tolerance": {"float32": F32_TOL, "bfloat16": BF16_TOL},
           "max_abs_err": {f"{k} {str(d)[6:]}": v for (k, d), v in max_err.items()}})
@@ -277,6 +322,8 @@ def phase_kernels(dev: dict) -> dict:
                "library_ms": device_ms(lambda: torch.bmm(x3, banded)),
                "bound_ms": bound, "bound_by": by, "bytes": nbytes, "flops": flops}
         row["achieved_bytes_per_s"] = nbytes / (row["ms"] * 1e-3)
+        if kernel == "K2" and "tile" in by_layout:
+            row["ms_by_tile_plan"] = _tile_plan_times(x, g, shift)
         shapes.append(row)
         return row
 
@@ -378,8 +425,10 @@ def phase_model(dev: dict) -> dict:
                 (dict(fov=180.0), (0, 6))]
 
     # K1's layouts in each full-panorama setting: tile at the three fine
-    # scales, warp at the three coarse ones
+    # scales, warp at the three coarse ones; K2's in the fov=180 one: tile
+    # from 32x32x320 down, warp at 8x8 and 16x16
     k1_layouts = {("matching_epilogue", "tile"): 3, ("matching_epilogue", "warp"): 3}
+    k2_fov_layouts = {("matching_scores", "tile"): 4, ("matching_scores", "warp"): 2}
 
     # the main path, one setting at a time, with every launch counter at 0
     # just before it and read just after
@@ -399,6 +448,9 @@ def phase_model(dev: dict) -> dict:
         k1 = {k: n for k, n in got.items() if k[0] == "matching_epilogue"}
         if "fov" not in kw and k1 != k1_layouts:
             raise AssertionError(f"VIGOR {kw}: K1 launches by layout {k1}, want {k1_layouts}")
+        k2 = {k: n for k, n in got.items() if k[0] == "matching_scores"}
+        if "fov" in kw and k2 != k2_fov_layouts:
+            raise AssertionError(f"VIGOR {kw}: K2 launches by layout {k2}, want {k2_fov_layouts}")
 
     results = []
     for (kw, _), ps in zip(settings, poses):
@@ -504,7 +556,8 @@ def _profile(model, grd, sat, out: Path | None) -> dict:
         (out / "profile.txt").write_text(events.table(sort_by=attr, row_limit=60))
         prof.export_chrome_trace(str(out / "trace.json"))
     mine = [r for r in rows if any(k in r[0] for k in
-                                   ("match_row_kernel", "match_warp_kernel", "match_tile_kernel"))]
+                                   ("match_row_kernel", "match_warp_kernel", "match_tile_kernel",
+                                    "match_scores_tile_kernel"))]
     return {"device_ms_per_call": busy, "wall_ms_per_call_profiled": wall_ms,
             "matching_kernels_ms_per_call": sum(r[1] for r in mine),
             "matching_kernel_launches_per_call": sum(r[2] for r in mine),

@@ -113,18 +113,89 @@ def test_tile_layout_matches_plain(dev, dtype, b, hw, cs, shift, offsets):
     assert not scores[0, 0, 0].float().any() and not xnorm[0, 0, 0].float().any()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hw,cs,cg,shift,offsets,window", [
+    (8, (64, 64), 160, 80, 8, range(20), "first"),      # the fov=180 fine VIGOR scales
+    (8, (128, 128), 80, 40, 4, range(20), "first"),
+    (8, (256, 256), 40, 20, 2, range(20), "first"),
+    (2, (64, 64), 160, 28, 8, range(20), "center"),     # Oxford's centred window
+    (2, (128, 128), 80, 14, 4, range(20), "center"),
+    (2, (96, 96), 40, 7, 2, range(20), "center"),
+    (2, (64, 64), 128, 64, 16, range(16), "first"),     # KITTI, 16 bins
+    (2, (64, 64), 128, 32, 8, range(16), "first"),
+    (2, (128, 128), 80, 40, 4, range(-2, 3), "first"),  # negative offsets
+    (3, (41, 41), 40, 20, 2, range(-2, 3), "first"),    # ragged HW, 5 bins
+    (3, (66, 66), 80, 40, 4, range(21), "first"),       # ragged HW, 21 bins
+    (3, (41, 41), 40, 40, 2, range(21), "first"),       # Cg == Cs: one segment
+    (1, (33, 31), 80, 13, 3, range(32), "center"),      # 32 bins, uneven segments
+    (8, (32, 32), 320, 160, 16, range(20), "first"),    # fov=180 at 32x32x320
+    (2, (32, 32), 320, 56, 16, range(20), "center"),    # Oxford at 320 channels
+])
+def test_scores_tile_layout_matches_plain(dev, dtype, b, hw, cs, cg, shift, offsets, window):
+    x, g = _inputs(dev, b, hw, cs, cg, seed=cs + cg + b, dtype=dtype)
+    ks = TM.bin_shifts(cs, cg, shift, offsets, window)
+    x[0, 0, 0] = 0                         # a zero row: the 1e-12 clamps give 0, not NaN
+    # a row that is zero inside bin 1's window only (cyclically from k_1)
+    inside = (torch.arange(cg, device=dev) + ks[min(1, len(ks) - 1)]) % cs
+    x[-1, -1, -1, inside] = 0
+    before = MC.LAUNCHES_BY_LAYOUT["matching_scores", "tile"]
+    got = MC.launch_matching_scores(x, g, shift, tuple(offsets), window, "tile")
+    torch.cuda.synchronize()
+    assert MC.LAUNCHES_BY_LAYOUT["matching_scores", "tile"] == before + 1
+    want = TM.matching_scores_plain(x.float(), g.float(), shift, offsets, window)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want, **tol)
+    assert not got[0, 0, 0].float().any()
+    if cg < cs:
+        assert got[-1, -1, -1, min(1, len(ks) - 1)].float().item() == 0
+        assert got[-1, -1, -1].float().abs().max() > 0
+
+
+@pytest.mark.parametrize("plan", MC.K2_TILE_PLANS_NARROW + MC.K2_TILE_PLANS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hw,cs,cg,shift,offsets,window", [
+    (2, (128, 128), 80, 40, 4, range(20), "first"),
+    (3, (41, 41), 40, 7, 2, range(-2, 3), "center"),
+    (2, (66, 66), 160, 160, 8, range(21), "first"),
+])
+def test_every_scores_tile_plan_matches_plain(dev, monkeypatch, dtype, plan, b, hw, cs, cg,
+                                              shift, offsets, window):
+    # each (threads, rows per thread, stages) that the plan can take, forced
+    monkeypatch.setattr(MC, "K2_TILE_PLANS_NARROW", ())
+    monkeypatch.setattr(MC, "K2_TILE_PLANS", (plan,))
+    MC._plan.cache_clear()
+    try:
+        x, g = _inputs(dev, b, hw, cs, cg, seed=cs + cg, dtype=dtype)
+        x[0, 0, 0] = 0
+        got = MC.launch_matching_scores(x, g, shift, tuple(offsets), window, "tile")
+        torch.cuda.synchronize()
+    finally:
+        MC._plan.cache_clear()
+    want = TM.matching_scores_plain(x.float(), g.float(), shift, offsets, window)
+    torch.testing.assert_close(got.float(), want,
+                               **(F32_TOL if dtype == torch.float32 else BF16_TOL))
+
+
 def test_tile_layout_refuses_what_it_does_not_take(dev):
-    x, g = _inputs(dev, 2, (16, 16), 40, 40, seed=5)
-    with pytest.raises(ValueError, match="'warp' or 'row'"):
-        MC.launch_matching_scores(x, g, 2, tuple(range(20)), "first", "tile")
     for cs, dtype in ((42, torch.float32), (36, torch.bfloat16)):
         xo, go = _inputs(dev, 2, (16, 16), cs, cs, seed=6, dtype=dtype)
         with pytest.raises(ValueError, match="tile layout"):
             MC.launch_matching_epilogue(xo, go, 2, tuple(range(20)), "first", "tile")
+        with pytest.raises(ValueError, match="tile layout"):
+            MC.launch_matching_scores(xo, go[:, :cs // 2].contiguous(), 2, tuple(range(20)),
+                                      "first", "tile")
+    x, g = _inputs(dev, 2, (16, 16), 40, 40, seed=5)
+    with pytest.raises(ValueError, match="'warp', 'row' or 'tile'"):
+        MC.launch_matching_scores(x, g, 2, tuple(range(20)), "first", "split")
     flat = torch.zeros(2 * 16 * 16 * 40 + 1, device=dev)
     with pytest.raises(ValueError, match="aligned"):
         MC.launch_matching_epilogue(flat[1:].view(2, 16, 16, 40), g, 2, tuple(range(20)),
                                     "first", "tile")
+    with pytest.raises(ValueError, match="aligned"):
+        MC.launch_matching_scores(flat[1:].view(2, 16, 16, 40), g[:, :20].contiguous(), 2,
+                                  tuple(range(20)), "first", "tile")
 
 
 def test_python_plans_match_the_library(dev):
@@ -137,6 +208,7 @@ def test_python_plans_match_the_library(dev):
                 assert MC.row_smem_bytes(cs, cs, bins) == lib.ccvpe_match_row_smem_bytes(cs, bins, 0)
                 assert MC.row_smem_bytes(cs, cs // 2, bins) == lib.ccvpe_match_row_smem_bytes(
                     cs, bins, 1)
+                # K1
                 plan = MC.tile_plan((8, 64, 64, cs), bins, dtype, MC.device_limits(0))
                 for rows in MC.TILE_ROWS:
                     assert MC.tile_smem_bytes(cs, bins, item, rows) == \
@@ -146,12 +218,28 @@ def test_python_plans_match_the_library(dev):
                     # occupancy calculator (registers included) allows
                     occ = lib.ccvpe_match_tile_blocks_per_sm(cs, bins, code, plan.rows, plan.smem)
                     assert 1 <= plan.blocks_per_sm <= occ, (cs, bins, dtype, plan, occ)
+                # K2 with one segment (Cg == Cs) and with the most segments
+                # that `bins` windows can make (Cg < Cs), at every plan it takes
+                for nseg in (1, 2 * bins + 1):
+                    for threads, rpt, stages in MC.K2_TILE_PLANS_NARROW + MC.K2_TILE_PLANS:
+                        assert MC.tile_smem_bytes(cs, bins, item, threads * rpt,
+                                                  "matching_scores", nseg, stages) == \
+                            lib.ccvpe_match_scores_tile_smem_bytes(cs, bins, code, threads * rpt,
+                                                                   stages, nseg)
+                    plan = MC.tile_plan((8, 64, 64, cs), bins, dtype, MC.device_limits(0),
+                                        "matching_scores", nseg)
+                    if plan is not None:
+                        occ = lib.ccvpe_match_scores_tile_blocks_per_sm(
+                            bins, code, int(nseg > 1), plan.rpt, plan.rows // plan.rpt,
+                            plan.smem)
+                        assert 1 <= plan.blocks_per_sm <= occ, (cs, bins, dtype, nseg, plan, occ)
 
 
 def test_automatic_layout_and_grad_free_dispatch(dev):
     x, g = _inputs(dev, 8, (256, 256), 40, 40, seed=3)
     assert MC.pick_layout("matching_epilogue", x, 40, 20) == "tile"
-    assert MC.pick_layout("matching_scores", x, 40, 20) == "row"
+    assert MC.pick_layout("matching_scores", x, 40, 20) == "tile"
+    assert MC.pick_layout("matching_scores", x, 20, 20) == "tile"
     assert MC.pick_layout("matching_epilogue", x[:, :8, :8].contiguous(), 40, 20) == "warp"
     before = MC.LAUNCHES["matching_epilogue"]
     tile = MC.LAUNCHES_BY_LAYOUT["matching_epilogue", "tile"]
