@@ -12,6 +12,10 @@ reference-format ``.pt`` checkpoints.
   plus ``num_batches_tracked`` = 0;
 * the EfficientNet classifier head ``_fc`` (never run) as zeros.
 
+The same rules name a JAX gradient tree, which has the shape of
+``params``: ``grads_from_jax`` (parameters only: no BatchNorm buffers and
+no ``_fc``, which the port trains without a gradient).
+
 The trees are nested dicts and lists of array-likes (numpy arrays, or
 anything ``np.asarray`` takes).
 """
@@ -35,6 +39,8 @@ def _deconv_w(w):
 def _bn(out, prefix, params, state):
     out[prefix + ".weight"] = np.asarray(params["scale"])
     out[prefix + ".bias"] = np.asarray(params["bias"])
+    if state is None:
+        return
     out[prefix + ".running_mean"] = np.asarray(state["mean"])
     out[prefix + ".running_var"] = np.asarray(state["var"])
     out[prefix + ".num_batches_tracked"] = np.zeros((), np.int64)
@@ -47,21 +53,25 @@ def _conv(out, prefix, p):
 
 
 def _backbone(out, p, params, state):
+    """``state`` None: the parameters alone (no BN buffers, no ``_fc``)."""
+    st = state or {"blocks": [{}] * len(params["blocks"])}
     _conv(out, p + "_conv_stem", params["conv_stem"])
-    _bn(out, p + "_bn0", params["bn0"], state["bn0"])
-    for i, (bp, bs) in enumerate(zip(params["blocks"], state["blocks"])):
+    _bn(out, p + "_bn0", params["bn0"], st.get("bn0"))
+    for i, (bp, bs) in enumerate(zip(params["blocks"], st["blocks"])):
         k = f"{p}_blocks.{i}."
         if "expand_conv" in bp:
             _conv(out, k + "_expand_conv", bp["expand_conv"])
-            _bn(out, k + "_bn0", bp["bn0"], bs["bn0"])
+            _bn(out, k + "_bn0", bp["bn0"], bs.get("bn0"))
         _conv(out, k + "_depthwise_conv", bp["depthwise_conv"])
-        _bn(out, k + "_bn1", bp["bn1"], bs["bn1"])
+        _bn(out, k + "_bn1", bp["bn1"], bs.get("bn1"))
         _conv(out, k + "_se_reduce", bp["se_reduce"])
         _conv(out, k + "_se_expand", bp["se_expand"])
         _conv(out, k + "_project_conv", bp["project_conv"])
-        _bn(out, k + "_bn2", bp["bn2"], bs["bn2"])
+        _bn(out, k + "_bn2", bp["bn2"], bs.get("bn2"))
     _conv(out, p + "_conv_head", params["conv_head"])
-    _bn(out, p + "_bn1", params["bn1"], state["bn1"])
+    _bn(out, p + "_bn1", params["bn1"], st.get("bn1"))
+    if state is None:
+        return
     feat = np.asarray(params["conv_head"]["w"]).shape[-1]
     out[p + "_fc.weight"] = np.zeros((NUM_CLASSES, feat), np.float32)
     out[p + "_fc.bias"] = np.zeros((NUM_CLASSES,), np.float32)
@@ -78,9 +88,20 @@ def _sat_linear(p, chunk_hw: int = 2):
 def state_dict_from_jax(params, bn_state) -> dict[str, torch.Tensor]:
     """The JAX CVM's (params, bn_state) trees -> the port's state_dict
     (float leaves as float32 tensors)."""
+    return _cvm_tensors(params, bn_state)
+
+
+def grads_from_jax(grads) -> dict[str, torch.Tensor]:
+    """A JAX CVM gradient tree (the shape of ``params``) -> float32 tensors
+    under the port's parameter names, laid out as the port's ``.grad``s;
+    BatchNorm buffers and the unused ``_fc`` heads are left out."""
+    return _cvm_tensors(grads, None)
+
+
+def _cvm_tensors(params, bn_state) -> dict[str, torch.Tensor]:
     out: dict[str, np.ndarray] = {}
     for name in ("grd_efficientnet", "sat_efficientnet"):
-        _backbone(out, name + ".", params[name], bn_state[name])
+        _backbone(out, name + ".", params[name], None if bn_state is None else bn_state[name])
     for k in range(1, 7):
         name = f"grd_feature_to_descriptor{k}"
         _conv(out, f"{name}.0", params[name]["conv_c"])

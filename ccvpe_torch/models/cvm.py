@@ -15,7 +15,12 @@ reference-format checkpoint loads with ``load_state_dict(strict=True)``.
 Matching goes through ``ops.matching``: on a CUDA tensor, kernel K1 at every
 scale where Cg == Cs (all six VIGOR scales) and K2 elsewhere and for the
 ori-prior full-bin bottleneck stack; on a CPU tensor, their plain versions.
-``matching_impl="plain"`` forces the plain versions on any device.
+``matching_impl="plain"`` forces the plain versions on any device.  With
+autograd on, the kernels' backward is autograd through the plain versions.
+
+Training uses ``nn.Module.train()``: the BatchNorms normalise with batch
+statistics and update their running statistics, and a ``generator`` passed
+to ``forward`` turns on drop-connect in both backbones.
 """
 
 from __future__ import annotations
@@ -228,8 +233,8 @@ class CVM(nn.Module):
         return getattr(self, f"conv{name}{branch_suffix}")(x)
 
     def forward(self, grd: torch.Tensor, sat: torch.Tensor, *, loc_offsets=None,
-                circular: bool | None = None, matching_impl: str = "kernel"
-                ) -> CVMOutputs:
+                circular: bool | None = None, matching_impl: str = "kernel",
+                generator: torch.Generator | None = None) -> CVMOutputs:
         """grd [B, Hg, Wg, 3], sat [B, Hs, Ws, 3] NHWC, ImageNet-normalised.
 
         ``loc_offsets``: orientation-bin offsets of the localization branch;
@@ -237,7 +242,9 @@ class CVM(nn.Module):
         orientation decoder still takes the full-bin bottleneck stack.
         ``circular``: override the ground encoder's wrap padding (off for a
         cropped panorama).  ``matching_impl``: 'kernel' (device dispatch:
-        the CUDA kernels on a CUDA tensor) or 'plain'.
+        the CUDA kernels on a CUDA tensor) or 'plain'.  ``generator``: the
+        drop-connect draws of both backbones in train mode (None: no
+        drop-connect, as the JAX forward without ``rng``).
         """
         cfg = self.cfg
         if matching_impl == "kernel":
@@ -253,9 +260,9 @@ class CVM(nn.Module):
         cl = torch.channels_last
         grd = _nchw(grd).contiguous(memory_format=cl)
         sat = _nchw(sat).contiguous(memory_format=cl)
-        grd_feat, _ = self.grd_efficientnet(grd, circular)
+        grd_feat, _ = self.grd_efficientnet(grd, circular, generator)
         descs = [self._grd_descriptor(k, grd_feat) for k in range(N_SCALES)]
-        sat_feat, ms = self.sat_efficientnet(sat)
+        sat_feat, ms = self.sat_efficientnet(sat, generator=generator)
         skips = [ms[i] for i in cfg.skip_blocks]
         sat_desc = self._sat_descriptor_grid(sat_feat)        # NHWC, contiguous
 

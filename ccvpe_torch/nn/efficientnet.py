@@ -8,6 +8,9 @@ counterpart of ``ccvpe_tpu/nn/efficientnet.py``.
 * Circular horizontal padding on every conv of the ground panorama encoder
   when enabled; ``forward(x, circular=False)`` turns it off for a cropped
   (limited field of view) panorama.
+* Drop-connect on the identity-skip blocks at rate
+  ``DROP_CONNECT_RATE * i / n`` (block i of n), only in train mode and only
+  when ``forward`` is given a ``torch.Generator`` to draw from.
 
 Module names follow the reference's state_dict keys (``_conv_stem``,
 ``_bn0``, ``_blocks.N._expand_conv``, ..., ``_conv_head``, ``_bn1``,
@@ -28,6 +31,7 @@ from .layers import (
     ConvSpec,
     StaticPadConv2d,
     batch_norm,
+    drop_connect_random,
     same_pad,
     silu,
     traced_output_hw,
@@ -55,6 +59,7 @@ B0_BLOCK_ARGS = (
 )
 
 B0_IMAGE_SIZE = 224
+DROP_CONNECT_RATE = 0.2
 
 # Reduced 5-block backbone with B0's stride/skip structure, for fast tests
 # (not a reference architecture).
@@ -127,7 +132,7 @@ def backbone_config(name: str, circular: bool = False) -> BackboneConfig:
 
 
 class MBConvBlock(nn.Module):
-    """Mobile inverted bottleneck with squeeze-excite (eval-mode forward)."""
+    """Mobile inverted bottleneck with squeeze-excite."""
 
     def __init__(self, spec: BlockSpec):
         super().__init__()
@@ -144,7 +149,10 @@ class MBConvBlock(nn.Module):
         self._project_conv = StaticPadConv2d(spec.project_conv)
         self._bn2 = batch_norm(spec.project_conv.cout)
 
-    def forward(self, inputs: torch.Tensor, circular: bool) -> torch.Tensor:
+    def forward(self, inputs: torch.Tensor, circular: bool, drop_rate: float = 0.0,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """``drop_rate`` applies on an identity-skip block in train mode with
+        a ``generator``."""
         x = inputs
         if self._expand_conv is not None:
             x = silu(self._bn0(self._expand_conv(x, circular)))
@@ -154,6 +162,8 @@ class MBConvBlock(nn.Module):
         x = torch.sigmoid(se) * x
         x = self._bn2(self._project_conv(x, circular))
         if self.id_skip:
+            if self.training and drop_rate and generator is not None:
+                x = drop_connect_random(x, drop_rate, generator)
             x = x + inputs
         return x
 
@@ -174,14 +184,17 @@ class EfficientNet(nn.Module):
         nn.init.zeros_(self._fc.weight)
         nn.init.zeros_(self._fc.bias)
 
-    def forward(self, x: torch.Tensor, circular: bool | None = None
+    def forward(self, x: torch.Tensor, circular: bool | None = None,
+                generator: torch.Generator | None = None
                 ) -> tuple[torch.Tensor, list[torch.Tensor]]:
-        """x [B, 3, H, W] -> (head features [B, C, h, w], block outputs)."""
+        """x [B, 3, H, W] -> (head features [B, C, h, w], block outputs).
+        ``generator``: the draws of drop-connect in train mode (None: off)."""
         circular = self.circular if circular is None else circular
         x = silu(self._bn0(self._conv_stem(x, circular)))
         multiscale = []
-        for block in self._blocks:
-            x = block(x, circular)
+        n = len(self._blocks)
+        for i, block in enumerate(self._blocks):
+            x = block(x, circular, DROP_CONNECT_RATE * i / n, generator)
             multiscale.append(x)
         x = silu(self._bn1(self._conv_head(x, circular)))
         return x, multiscale

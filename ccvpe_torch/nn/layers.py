@@ -7,9 +7,12 @@ Modules take NCHW tensors, as PyTorch's do; the model keeps them in
   not from the runtime input, and possibly asymmetric.  They are applied
   with ``F.pad`` in front of a ``padding=0`` conv.
 * Horizontal circular ("wrap") padding then vertical zeros for panoramas.
-* BatchNorm with eps 1e-3 and torch's momentum 0.01 (eval mode on the
-  inference path).
+* BatchNorm with eps 1e-3 and torch's momentum 0.01.  In train mode
+  ``nn.BatchNorm2d`` normalises with the biased batch variance and folds
+  the unbiased one (n = B*H*W) into the running variance, as ``bn_apply``
+  does.
 * ``ConvTranspose2d(k=2, s=2)`` for the decoder's upsampling.
+* Stochastic depth (``drop_connect``) with a per-sample uniform draw.
 """
 
 from __future__ import annotations
@@ -99,6 +102,28 @@ def deconv2x2(cin: int, cout: int) -> nn.ConvTranspose2d:
 def l2_normalize(x: torch.Tensor, dim: int, eps: float = 1e-12) -> torch.Tensor:
     """x / max(||x||, eps) along ``dim`` (``F.normalize`` semantics)."""
     return F.normalize(x, p=2.0, dim=dim, eps=eps)
+
+
+def max_pool(x: torch.Tensor, window: int) -> torch.Tensor:
+    """NHWC max pooling, VALID, stride = window (the GT pyramid's
+    downsampling)."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), window).permute(0, 2, 3, 1)
+
+
+def drop_connect(x: torch.Tensor, rate: float, u: torch.Tensor) -> torch.Tensor:
+    """Stochastic depth from given draws: ``x / keep * floor(keep + u)`` with
+    keep = 1 - rate and ``u`` uniform in [0, 1) per sample, shape
+    [B, 1, 1, 1]."""
+    keep = 1.0 - rate
+    return x / keep * torch.floor(keep + u)
+
+
+def drop_connect_random(x: torch.Tensor, rate: float,
+                        generator: torch.Generator) -> torch.Tensor:
+    """``drop_connect`` with ``u`` drawn from ``generator`` (on x's device)."""
+    u = torch.rand((x.shape[0], 1, 1, 1), generator=generator, device=x.device,
+                   dtype=x.dtype)
+    return drop_connect(x, rate, u)
 
 
 @torch.no_grad()

@@ -22,7 +22,16 @@ Phases, each printing one JSON line:
    at the three fine scales; K2 at fov=180: tile at four, warp at two), held
    against the same model with matching forced to the plain versions; and a
    NANO model on the card held against the same model on the CPU.
-5. timing:  steady-state ``predict_batch`` pairs/s at batch 8 in float32,
+5. train:   the VIGOR train step (``ccvpe_torch.train.loop``) at batch 8 in
+   float32, TF32 off, on seeded weights with calibrated BN statistics and
+   GT synthesized on the card: (a) one step through K1 against the same
+   step through the plain versions (loss parts, every gradient, the new BN
+   statistics; 6 K1 launches, 3 tile and 3 warp); (b) 2 warm-up and 5 timed
+   steps with drop-connect (finite losses, everything moved, samples/s,
+   peak memory); (c) one NANO step on the card against the CPU; (d) the
+   device time of one step by part (forward, matching backward, rest of
+   the backward, optimizer) and by kernel (``torch.profiler``).
+6. timing:  steady-state ``predict_batch`` pairs/s at batch 8 in float32,
    and the device time by kernel of three calls (``torch.profiler``).
 
 Then the ``kernels`` summary line, the raw ``nvidia-smi`` line and, last,
@@ -36,7 +45,9 @@ profiler's table and trace to ``DIR``.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
+import math
 import re
 import signal
 import statistics
@@ -49,11 +60,14 @@ import numpy as np
 import torch
 
 from ccvpe_torch import api
-from ccvpe_torch.nn.layers import calibrate_batch_norm_
 from ccvpe_torch.data.transforms import normalize_images
+from ccvpe_torch.models import cvm
+from ccvpe_torch.nn.layers import calibrate_batch_norm_
 from ccvpe_torch.ops import _build
+from ccvpe_torch.ops import gt as GT
 from ccvpe_torch.ops import matching as TM
 from ccvpe_torch.ops import matching_cuda as MC
+from ccvpe_torch.train import loop as TLOOP
 
 DEADLINE_S = 1100   # the whole run, build included, must end well inside 1200 s
 BATCH = 8
@@ -511,6 +525,256 @@ def phase_nano_reference() -> dict:
     return info
 
 
+# the train step, kernel path against plain path on the card (float32, TF32
+# off): loss parts rtol; each gradient tensor ||d|| <= rel * ||g_plain|| +
+# abs * grad_norm; the new BN running statistics atol = rtol
+TRAIN_TOL = {"loss_rtol": 1e-5, "grad_rel": 1e-3, "grad_abs": 1e-6, "bn": 1e-5}
+# NANO's train step on the card against the CPU (cuDNN's and the CPU's
+# convolutions and their gradients sum in other orders)
+NANO_TRAIN_TOL = {"loss_rtol": 1e-4, "grad_rel": 1e-4, "grad_abs": 1e-6, "bn": 1e-4}
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+
+
+def _train_batch(cfg, batch: int, seed: int, device, span: float = 200.0) -> dict:
+    """Seeded uint8 images on ``device`` and their factored GT synthesized
+    there: row and col offsets within +-``span`` px, angles in [0, 360)."""
+    grd, sat = _images(cfg, batch, seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    off = (torch.rand((2, batch), generator=gen, device=device) * 2 - 1) * span
+    angle = torch.rand((batch,), generator=gen, device=device) * 360
+    gt, weights, omap = GT.synthesize_batch_factored(
+        off[0], off[1], angle, height=cfg.sat_hw[0], width=cfg.sat_hw[1], bins=cfg.bins)
+    return {"grd": torch.from_numpy(grd).to(device), "sat": torch.from_numpy(sat).to(device),
+            "gt": gt, "bin_weights": weights, "orientation": omap}
+
+
+def _normalized(batch: dict) -> dict:
+    """The step's input: the uint8 images ImageNet-normalised on their device."""
+    return {**batch, "grd": normalize_images(batch["grd"]),
+            "sat": normalize_images(batch["sat"])}
+
+
+def _calibrated_state(cfg, seed: int, device=None) -> TLOOP.TrainState:
+    """A seeded train state whose BN statistics come from one seeded batch."""
+    state = TLOOP.create_train_state(cfg, seed=seed, device=device)
+    dev = next(state.model.parameters()).device
+    grd, sat = _images(cfg, 2, seed + 1)
+    g = normalize_images(torch.from_numpy(grd).to(dev))
+    s = normalize_images(torch.from_numpy(sat).to(dev))
+    calibrate_batch_norm_(state.model, lambda: state.model(g, s))
+    state.model.train()
+    return state
+
+
+def _compare_steps(tag, got, want, got_parts, want_parts, tol) -> dict:
+    """One step of two states from the same start: loss parts, every
+    gradient and the new BN running statistics."""
+    errs = {}
+    for k, v in want_parts.items():
+        a, b = got_parts[k].item(), v.item()
+        if not (math.isfinite(a) and abs(a - b) <= tol["loss_rtol"] * abs(b)):
+            raise AssertionError(f"{tag}: {k} {a} vs {b}")
+        errs[k] = abs(a - b) / abs(b)
+    grad_norm = want_parts["grad_norm"].item()
+    theirs = dict(want.model.named_parameters())
+    worst, n = 0.0, 0
+    for k, p in got.model.named_parameters():
+        q = theirs[k]
+        if (p.grad is None) != (q.grad is None):
+            raise AssertionError(f"{tag}: {k} has a gradient on one side only")
+        if q.grad is None:
+            continue
+        d = (p.grad.float().cpu() - q.grad.float().cpu()).norm().item()
+        lim = tol["grad_rel"] * q.grad.float().norm().item() + tol["grad_abs"] * grad_norm
+        if not d <= lim:
+            raise AssertionError(f"{tag}: gradient of {k} differs by {d} > {lim}")
+        worst, n = max(worst, d / lim), n + 1
+    theirs = dict(want.model.named_buffers())
+    bn_err = 0.0
+    for k, v in got.model.named_buffers():
+        if k.endswith(("running_mean", "running_var")):
+            torch.testing.assert_close(v.cpu(), theirs[k].cpu(), atol=tol["bn"], rtol=tol["bn"],
+                                       msg=lambda m, k=k: f"{tag}: {k}: {m}")
+            bn_err = max(bn_err, (v.cpu() - theirs[k].cpu()).abs().max().item())
+    return {"loss_parts_rel_err": errs, "gradient_tensors": n,
+            "worst_gradient_err_over_limit": worst, "bn_max_abs_err": bn_err}
+
+
+def phase_train(dev: dict, out: Path | None) -> dict:
+    """The VIGOR train step at full width, batch 8, float32, on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cvm.VIGOR
+    t0 = time.perf_counter()
+    state = _calibrated_state(cfg, seed=0)
+    if next(state.model.parameters()).device.type != "cuda":
+        raise AssertionError("create_train_state did not place the model on cuda")
+    plain = TLOOP.create_train_state(cfg, seed=0)
+    plain.model.load_state_dict(state.model.state_dict())
+    data = _train_batch(cfg, BATCH, seed=2, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # (a) kernel against plain, one step from identical weights, no drop-connect
+    k_step = TLOOP.make_train_step(cfg)
+    MC.reset_launch_counts()
+    k_parts = k_step(state, _normalized(data))
+    torch.cuda.synchronize()
+    k_layouts = {k: n for k, n in MC.LAUNCHES_BY_LAYOUT.items() if n}
+    p_parts = TLOOP.make_train_step(cfg, matching_impl="plain")(plain, _normalized(data))
+    torch.cuda.synchronize()
+    want_layouts = {("matching_epilogue", "tile"): 3, ("matching_epilogue", "warp"): 3}
+    if k_layouts != want_layouts:
+        raise AssertionError(f"VIGOR train step: launches by layout {k_layouts}, "
+                             f"want {want_layouts}")
+    if sum(MC.LAUNCHES.values()) != 6:
+        raise AssertionError(f"the plain step launched a kernel: {MC.LAUNCHES}")
+    check = _compare_steps("VIGOR train step kernel vs plain", state, plain, k_parts, p_parts,
+                           TRAIN_TOL)
+    del plain, p_parts
+    torch.cuda.empty_cache()
+
+    # (b) steps with drop-connect drawn on the card: the main path's run
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    for _ in range(TRAIN_WARMUP):
+        k_step(state, _normalized(data), gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    MC.reset_launch_counts()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    w0 = time.perf_counter()
+    a.record()
+    step_parts = [k_step(state, _normalized(data), gen) for _ in range(TRAIN_TIMED)]
+    b.record()
+    b.synchronize()
+    wall_s = time.perf_counter() - w0
+    launches = dict(MC.LAUNCHES)
+    if launches != {"matching_epilogue": 6 * TRAIN_TIMED, "matching_scores": 0}:
+        raise AssertionError(f"{TRAIN_TIMED} train steps launched {launches}")
+    step_ms = a.elapsed_time(b) / TRAIN_TIMED
+    loss_values = [p["loss"].item() for p in step_parts]
+    if not all(math.isfinite(v.item()) for p in step_parts for v in p.values()):
+        raise AssertionError(f"non-finite loss parts: {step_parts}")
+    # every parameter and BN statistic moved, except the _fc heads (no gradient)
+    after = state.model.state_dict()
+    stay = {k for k in before if not k.endswith("num_batches_tracked")
+            and torch.equal(before[k], after[k])}
+    want_stay = {k for k in before if "._fc." in k}
+    if stay != want_stay:
+        raise AssertionError(f"these stayed through {TRAIN_WARMUP + TRAIN_TIMED} steps: "
+                             f"{sorted(stay ^ want_stay)[:8]}")
+    del before, after
+    info = {"phase": "train", "card": dev["nvidia_smi"], "preset": "VIGOR", "batch": BATCH,
+            "dtype": "float32", "setup_seconds": setup_s, "tolerance": TRAIN_TOL,
+            "kernel_vs_plain": {**check, "launches_by_layout": {
+                f"{k} {lay}": n for (k, lay), n in k_layouts.items()}},
+            "steps": TRAIN_WARMUP + TRAIN_TIMED, "timed_steps": TRAIN_TIMED,
+            "launches": launches, "losses": loss_values, "step_ms": step_ms,
+            "samples_per_s": BATCH / (step_ms * 1e-3),
+            "wall_samples_per_s": BATCH * TRAIN_TIMED / wall_s,
+            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    emit({k: v for k, v in info.items() if k != "losses"})
+    info["nano"] = phase_train_nano()
+    info["profile"] = _train_profile(state, _normalized(data), gen, dev, out)
+    # give the trainer's memory back before the inference timing
+    del state, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info
+
+
+def phase_train_nano() -> dict:
+    """(c) One NANO train step on the card (K1 at four scales, K2 at two,
+    both backward through autograd.Function) against the same step on the
+    CPU."""
+    cpu = _calibrated_state(cvm.NANO, seed=3, device="cpu")
+    gpu = TLOOP.create_train_state(cvm.NANO, seed=3)
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    # NANO's aerial image is 128 px wide
+    data = _normalized(_train_batch(cvm.NANO, 4, seed=5, device="cpu", span=40.0))
+    step = TLOOP.make_train_step(cvm.NANO)
+    MC.reset_launch_counts()
+    g_parts = step(gpu, {k: v.cuda() for k, v in data.items()})
+    torch.cuda.synchronize()
+    launches = dict(MC.LAUNCHES)
+    if launches != {"matching_epilogue": 4, "matching_scores": 2}:
+        raise AssertionError(f"NANO train step launched {launches}, want K1 4 and K2 2")
+    c_parts = step(cpu, data)
+    info = {"phase": "train_nano", "tolerance": NANO_TRAIN_TOL, "launches": launches,
+            **_compare_steps("NANO train step card vs CPU", gpu, cpu, g_parts, c_parts,
+                             NANO_TRAIN_TOL)}
+    emit(info)
+    return info
+
+
+MATCHING_BACKWARD = ("_EpilogueFnBackward", "_ScoresFnBackward")
+
+
+def split_step_profile(events, attr: str) -> dict:
+    """Time of one profiled train step by part, in ``attr`` (the events'
+    ``device_time_total`` on the card): the forward and loss and the
+    optimizer (their profiler ranges in ``train.loop``), the matching
+    backward (autograd of the plain versions under the kernels'
+    ``autograd.Function`` nodes, outermost event only), and the rest of the
+    backward as what remains of the step's kernel time."""
+    cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+
+    def outermost(names):
+        picked = []
+        for e in cpu:
+            if e.name.endswith(names):
+                parent = e.cpu_parent
+                while parent is not None and not parent.name.endswith(names):
+                    parent = parent.cpu_parent
+                if parent is None:
+                    picked.append(e)
+        return picked
+
+    def total(evts):
+        return sum(getattr(e, attr) for e in evts) / 1e3
+
+    # every kernel is attached to the one op that launched it
+    step = sum(k.duration for e in cpu for k in e.kernels) / 1e3
+    fwd = total(outermost((TLOOP.FORWARD_RANGE,)))
+    opt = total(outermost((TLOOP.OPTIMIZER_RANGE,)))
+    mbwd = outermost(MATCHING_BACKWARD)
+    parts = {"forward_and_loss": fwd, "matching_backward": total(mbwd),
+             "optimizer": opt}
+    parts["rest_of_backward"] = step - sum(parts.values())
+    return {"step": step, **parts, "matching_backward_nodes": len(mbwd)}
+
+
+def _train_profile(state, batch, gen, dev: dict, out: Path | None) -> dict:
+    """(d) ``torch.profiler`` over one train step: device ms by part and the
+    top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step = TLOOP.make_train_step(cvm.VIGOR)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+    split = split_step_profile(prof.events(), "device_time_total")
+    if split["matching_backward_nodes"] != 6 or not split["matching_backward"] > 0:
+        raise AssertionError(f"the profile shows {split['matching_backward_nodes']} matching "
+                             f"backward nodes with {split['matching_backward']} device ms")
+    events = prof.key_averages()
+    # kernels only: a profiler range also shows as a device-side span
+    ranges = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU}
+    rows = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in events
+                   if e.device_time_total > 0 and e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.key not in ranges),
+                  key=lambda r: -r[1])
+    if out is not None:
+        (out / "train_profile.txt").write_text(
+            events.table(sort_by="device_time_total", row_limit=60))
+        prof.export_chrome_trace(str(out / "train_trace.json"))
+    info = {"phase": "train_profile", "card": dev["nvidia_smi"], "device_ms": split,
+            "top": [{"kernel": k[:90], "ms": ms, "launches": c} for k, ms, c in rows[:15]]}
+    emit(info)
+    return info
+
+
 def phase_timing(dev: dict, model: api.CVMModel, out: Path | None) -> dict:
     grd, sat = _images(model.cfg, BATCH, seed=6)
     res = {"phase": "timing", "card": dev["nvidia_smi"], "batch": BATCH, "dtype": "float32"}
@@ -587,10 +851,16 @@ def main(argv=None) -> int:
     phase_build(args.out)
     kern = phase_kernels(dev)
     model, net = phase_model(dev)
+    train = phase_train(dev, args.out)
     timing = phase_timing(dev, net, args.out)
     summary = kern["summary"]
     per = model["launches_per_setting"]   # (K1, K2) per setting
-    summary[0]["launches"] = model["launches"]["matching_epilogue"]
+    by_path = {"predict_batch": model["launches"]["matching_epilogue"],
+               "train_step": train["launches"]["matching_epilogue"]}
+    summary[0]["launches"] = sum(by_path.values())
+    summary[0]["launches_by_path"] = by_path
+    summary[0]["backward"] = "autograd through the plain version"
+    summary[0]["backward_ms_per_train_step"] = train["profile"]["device_ms"]["matching_backward"]
     summary[1]["launches"] = per[json.dumps(dict(ori_noise=36.0))][1]
     summary[2]["launches"] = per[json.dumps(dict(fov=180.0))][1]
     if summary[1]["launches"] + summary[2]["launches"] != model["launches"]["matching_scores"]:
@@ -598,7 +868,7 @@ def main(argv=None) -> int:
                              f"fov=180's ({summary[1]['launches']}, {summary[2]['launches']})")
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(json.dumps(
-            {"device": dev, "kernels": kern, "model": model, "timing": timing,
+            {"device": dev, "kernels": kern, "model": model, "train": train, "timing": timing,
              "seconds": time.perf_counter() - t0}, indent=1))
     emit({"kernels": summary})
     print(dev["nvidia_smi"], flush=True)

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from ccvpe_tpu.io.torch_import import export_cvm, import_cvm, save_torch_checkpoint
-from ccvpe_torch.io.from_jax import load_state_dict, state_dict_from_jax
+from ccvpe_torch.io.from_jax import grads_from_jax, load_state_dict, state_dict_from_jax
 from ccvpe_torch.models import cvm as TC
 
 torch.set_num_threads(2)
@@ -45,3 +45,21 @@ def test_state_dict_from_jax_equals_export_cvm(name, tmp_path):
     assert list(loaded) == list(want)
     for k in want:
         torch.testing.assert_close(loaded[k], got[k], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", ["NANO", "TINY"])
+def test_grads_from_jax_names_every_trained_parameter(name):
+    """A tree shaped like ``params`` maps to the port's parameters without
+    BN buffers and ``_fc``, with the layouts of ``state_dict_from_jax``."""
+    net = TC.CVM(TC.PRESETS[name]).init_weights_(torch.Generator().manual_seed(3))
+    params, state = import_cvm({k: v.numpy() for k, v in net.state_dict().items()})
+    rng = np.random.default_rng(4)
+    grads = jax.tree_util.tree_map(
+        lambda p: rng.standard_normal(np.shape(p)).astype(np.float32), params)
+    got = grads_from_jax(grads)
+    named = dict(net.named_parameters())
+    assert set(got) == {k for k in named if "._fc." not in k}
+    full = state_dict_from_jax(grads, state)
+    for k, v in got.items():
+        assert v.shape == named[k].shape, k
+        torch.testing.assert_close(v, full[k], rtol=0, atol=0)

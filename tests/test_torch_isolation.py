@@ -54,10 +54,17 @@ def test_entry_points_need_cuda_unless_told_otherwise():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")
     from ccvpe_torch import api, resolve_device
+    from ccvpe_torch.models.cvm import NANO
+    from ccvpe_torch.train.loop import create_train_state
 
     with pytest.raises(RuntimeError, match="CUDA"):
         api.load_model(preset="NANO")
     with pytest.raises(RuntimeError, match="CUDA"):
+        create_train_state(NANO)
+    with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
     assert api.load_model(preset="NANO", device="cpu").device == torch.device("cpu")
+    state = create_train_state(NANO, device="cpu")
+    assert state.model.training
+    assert {p.device for p in state.model.parameters()} == {torch.device("cpu")}

@@ -261,6 +261,67 @@ def test_backward_is_autograd_of_the_plain_version(dev):
     torch.testing.assert_close(gs.grad, gp.grad, atol=1e-5, rtol=1e-4)
 
 
+# the six VIGOR scales (side of the square map, Cs, shift)
+VIGOR_SCALES = [(8, 1280, 64), (16, 640, 32), (32, 320, 16), (64, 160, 8), (128, 80, 4),
+                (256, 40, 2)]
+
+
+def _grads(fn, x, g, args, cotangents):
+    """(d x, d g) of sum(out * cotangent) over the outputs that have one
+    (None: the output is unused, so its incoming gradient is zeros).  An
+    input that the used outputs do not depend on gets zeros: autograd
+    leaves its ``grad`` None on the plain path, while the kernel's
+    ``autograd.Function`` returns zeros for it."""
+    xr, gr = x.clone().requires_grad_(), g.clone().requires_grad_()
+    outs = fn(xr, gr, *args)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    sum((o * c).sum() for o, c in zip(outs, cotangents) if c is not None).backward()
+    return tuple(torch.zeros_like(t) if t.grad is None else t.grad for t in (xr, gr))
+
+
+@pytest.mark.parametrize("scale", VIGOR_SCALES)
+@pytest.mark.parametrize("offsets", [range(20), range(-2, 3)])
+@pytest.mark.parametrize("used", ["all", "scores", "xnorm"])
+def test_epilogue_backward_at_the_vigor_scales(dev, scale, offsets, used):
+    """``_EpilogueFn``'s gradients against autograd of the plain version: the
+    training path's K1 at every VIGOR scale, with the prior's negative
+    offsets, and with some outputs unused."""
+    side, cs, shift = scale
+    x, g = _inputs(dev, 2, (side, side), cs, cs, seed=side)
+    args = (shift, tuple(offsets), "first")
+    gen = torch.Generator(device="cpu").manual_seed(cs)
+    shapes = [(2, side, side, len(offsets)), (2, side, side, 1), (2, side, side, cs)]
+    cot = [torch.randn(s, generator=gen).to(dev) for s in shapes]
+    if used != "all":
+        cot = [c if name == used else None for c, name in zip(cot, ("scores", "smax", "xnorm"))]
+    before = dict(MC.LAUNCHES)
+    got = _grads(MC.matching_epilogue_cuda, x, g, args, cot)
+    # one launch, in the forward; the backward runs the plain version
+    assert MC.LAUNCHES["matching_epilogue"] == before["matching_epilogue"] + 1
+    want = _grads(TM.matching_epilogue_plain, x, g, args, cot)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **F32_TOL)
+
+
+@pytest.mark.parametrize("scale", VIGOR_SCALES)
+@pytest.mark.parametrize("cg_div,offsets", [(2, range(20)), (1, range(-2, 3)), (2, range(-2, 3))])
+def test_scores_backward_masked_and_prior(dev, scale, cg_div, offsets):
+    """``_ScoresFn``'s gradients against autograd of the plain version: the
+    fov=180 masked window (Cg = Cs / 2) at every VIGOR scale and the prior's
+    negative offsets."""
+    side, cs, shift = scale
+    x, g = _inputs(dev, 2, (side, side), cs, cs // cg_div, seed=side + 1)
+    args = (shift, tuple(offsets), "first")
+    gen = torch.Generator(device="cpu").manual_seed(cs + 1)
+    cot = [torch.randn((2, side, side, len(offsets)), generator=gen).to(dev)]
+    before = MC.LAUNCHES["matching_scores"]
+    got = _grads(MC.matching_scores_cuda, x, g, args, cot)
+    assert MC.LAUNCHES["matching_scores"] == before + 1
+    want = _grads(TM.matching_scores_plain, x, g, args, cot)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **F32_TOL)
+
+
 def test_wrappers_raise_rather_than_copy(dev):
     x, g = _inputs(dev, 2, (4, 4), 64, 64, seed=2)
     with pytest.raises(ValueError, match="contiguous"):

@@ -130,3 +130,66 @@ def test_init_uniform_is_seeded_and_bounded():
     assert a[0].weight.abs().max() <= 1 / np.sqrt(4 * 9)
     assert a[1].weight.abs().max() <= 1 / np.sqrt(2 * 4)
     assert torch.equal(a[3].weight, torch.ones(6)) and torch.equal(a[3].bias, torch.zeros(6))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
+def test_drop_connect_from_shared_draws(rate):
+    import jax
+
+    x = np.random.default_rng(5).standard_normal((6, 3, 4, 5)).astype(np.float32)
+    key = jax.random.PRNGKey(7)
+    want = JL.drop_connect(jnp.asarray(x), rate, key)
+    # the uniform draws JL.drop_connect makes from this key
+    u = np.array(jax.random.uniform(key, (6, 1, 1, 1), jnp.float32))
+    got = TL.drop_connect(_nchw(x), rate, torch.from_numpy(u))
+    np.testing.assert_allclose(_nhwc(got), np.asarray(want), atol=1e-6, rtol=1e-6)
+    # each sample is kept whole (scaled by 1/keep) or dropped whole
+    kept = (_nhwc(got) != 0).reshape(6, -1)
+    assert (kept.all(1) | ~kept.any(1)).all()
+
+
+def test_drop_connect_random_is_seeded():
+    x = torch.ones(64, 2, 3, 3)
+    a = TL.drop_connect_random(x, 0.5, torch.Generator().manual_seed(0))
+    b = TL.drop_connect_random(x, 0.5, torch.Generator().manual_seed(0))
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert set(a.unique().tolist()) == {0.0, 2.0}
+
+
+@pytest.mark.parametrize("window", [2, 4, 64, 3])
+def test_max_pool(window):
+    x = np.random.default_rng(6).standard_normal((2, 128, 128, 5)).astype(np.float32)
+    want = JL.max_pool(jnp.asarray(x), window)
+    got = TL.max_pool(torch.from_numpy(x), window)
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("shape", [(4, 9, 7, 6), (1, 1, 3, 6)])
+def test_batch_norm_train_channels_last(shape):
+    """Batch statistics in, biased variance to normalise, unbiased variance
+    (n = B*H*W) into the running variance, momentum 0.01."""
+    rng = np.random.default_rng(7)
+    c = shape[-1]
+    x = (rng.standard_normal(shape) * 3 + 1).astype(np.float32)
+    p = {"scale": rng.standard_normal(c).astype(np.float32),
+         "bias": rng.standard_normal(c).astype(np.float32)}
+    s = {"mean": rng.standard_normal(c).astype(np.float32),
+         "var": rng.uniform(0.1, 2.0, c).astype(np.float32)}
+    want, new = JL.bn_apply({k: jnp.asarray(v) for k, v in p.items()},
+                            {k: jnp.asarray(v) for k, v in s.items()},
+                            jnp.asarray(x), train=True)
+    bn = TL.batch_norm(c).train()
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(p["scale"]))
+        bn.bias.copy_(torch.from_numpy(p["bias"]))
+        bn.running_mean.copy_(torch.from_numpy(s["mean"]))
+        bn.running_var.copy_(torch.from_numpy(s["var"]))
+    xt = _nchw(x).contiguous(memory_format=torch.channels_last)
+    got = bn(xt)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    np.testing.assert_allclose(_nhwc(got), np.asarray(want), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(bn.running_mean.numpy(), np.asarray(new["mean"]),
+                               atol=1e-6, rtol=1e-5)
+    np.testing.assert_allclose(bn.running_var.numpy(), np.asarray(new["var"]),
+                               atol=1e-6, rtol=1e-5)
