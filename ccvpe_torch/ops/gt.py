@@ -23,13 +23,21 @@ import torch.nn.functional as F
 SIGMA = 4.0
 
 
+def _grid(n: int, device) -> torch.Tensor:
+    """``linspace(-n/2, n/2, n)`` in float32, rounded from float64
+    arithmetic, so that every device gives the same grid (a float32
+    ``linspace`` may round some points differently on another device)."""
+    i = torch.arange(n, dtype=torch.float64, device=device)
+    return (i * (n / (n - 1)) - n / 2).to(torch.float32)
+
+
 def gaussian_heatmap(height: int, width: int, row_offset: torch.Tensor,
                      col_offset: torch.Tensor) -> torch.Tensor:
     """Offsets [...] -> [..., H, W] Gaussians of std ``SIGMA`` px, on the
     offsets' device."""
     dev = row_offset.device
-    x = torch.linspace(-width / 2, width / 2, width, device=dev) + col_offset[..., None]
-    y = torch.linspace(-height / 2, height / 2, height, device=dev) - row_offset[..., None]
+    x = _grid(width, dev) + col_offset[..., None]
+    y = _grid(height, dev) - row_offset[..., None]
     d2 = x.square()[..., None, :] + y.square()[..., :, None]
     return torch.exp(-d2 / (2.0 * SIGMA * SIGMA))
 

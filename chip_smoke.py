@@ -22,6 +22,11 @@ Phases, each printing one JSON line:
    at the three fine scales; K2 at fov=180: tile at four, warp at two), held
    against the same model with matching forced to the plain versions; and a
    NANO model on the card held against the same model on the CPU.
+   model_presets: the KITTI (16 bins, 2048-d descriptor; with and without
+   a +-2-bin prior) and Oxford RobotCar (4x7 ground grid, centred window)
+   presets at full width, batch 8, through the kernels against the plain
+   versions (the same pose per sample), launches per kernel and layout,
+   and each kernel timed at each of the preset's shapes.
 5. train:   the VIGOR train step (``ccvpe_torch.train.loop``) at batch 8 in
    float32, TF32 off, on seeded weights with calibrated BN statistics and
    GT synthesized on the card: (a) one step through K1 against the same
@@ -31,6 +36,17 @@ Phases, each printing one JSON line:
    peak memory); (c) one NANO step on the card against the CPU; (d) the
    device time of one step by part (forward, matching backward, rest of
    the backward, optimizer) and by kernel (``torch.profiler``).
+   data:    the input pipeline on synthetic dataset roots written from
+   seeds (VIGOR: 48 2048x1024 JPEG panoramas and 640x640 PNG tiles over two
+   cities): ``VigorIndex`` -> ``VigorSampler`` -> ``Loader`` (8 threads) ->
+   ``device_prefetch`` -> ``vigor.device_batch`` on the card ->
+   ``make_train_step`` for one epoch of six steps; the loader's batches/s
+   alone, the fed step against a resident batch's, the card's idle share
+   over each (``torch.profiler``), the host-to-device bytes per batch; one
+   batch on the card against the CPU, the prefetched batch against the
+   synchronous one; one KITTI batch through the alignment chain on the card
+   against the CPU; one Oxford batch; the native decoder's batch path when
+   it builds (else its build error).
 6. timing:  steady-state ``predict_batch`` pairs/s at batch 8 in float32,
    and the device time by kernel of three calls (``torch.profiler``).
 
@@ -238,6 +254,59 @@ def _bound(nbytes: float, flops: float, dev: dict) -> tuple[float, str]:
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
+def _time_matching(kernel, b, hw, cs, cg, shift, offsets, window, dev: dict, seed) -> dict:
+    """Device ms of ``kernel`` ('K1' or 'K2') in the layout the wrapper
+    picks and in every layout that takes the shape, of its plain version and
+    of ``torch.bmm`` (the product alone, a yardstick), beside the bound."""
+    x, g = _inputs(b, hw, cs, cg, seed, torch.float32)
+    offsets = tuple(offsets)
+    bins = len(offsets)
+    pixels = b * hw[0] * hw[1]
+    ks = TM.bin_shifts(cs, cg, shift, offsets, window)
+    banded = TM._banded(g, cs, ks)                      # [B, Cs, bins]
+    x3 = x.view(b, -1, cs)
+    if kernel == "K1":
+        def k_fn(layout=None):
+            return MC.launch_matching_epilogue(x, g, shift, offsets, window, layout)
+        p_fn = lambda: TM.matching_epilogue_plain(x, g, shift, offsets, window)
+        out_elems = pixels * (cs + bins + 1)              # xnorm, scores, smax
+        flops = pixels * cs * (2 * bins + 3)              # products, squares, divide
+    else:
+        def k_fn(layout=None):
+            return MC.launch_matching_scores(x, g, shift, offsets, window, layout)
+        p_fn = lambda: TM.matching_scores_plain(x, g, shift, offsets, window)
+        out_elems = pixels * bins
+        # products; squares; masked: a window product per bin
+        flops = pixels * cs * (2 * bins + (2 * bins if cg < cs else 2))
+    nbytes = 4 * (x.numel() + g.numel() + out_elems)
+    bound, by = _bound(nbytes, flops, dev)
+    layout = MC.pick_layout(KERNEL_NAMES[kernel], x, cg, bins)
+    by_layout = {lay: device_ms(lambda lay=lay: k_fn(lay))
+                 for lay in _layouts(kernel, x.shape, cg, bins, x.dtype)}
+    row = {"kernel": kernel, "x": [b, *hw, cs], "g": [b, cg], "bins": bins, "shift": shift,
+           "window": window, "layout": layout, "ms": by_layout[layout],
+           "ms_by_layout": by_layout, "eager_ms": time_ms(k_fn), "plain_ms": device_ms(p_fn),
+           "library_ms": device_ms(lambda: torch.bmm(x3, banded)),
+           "bound_ms": bound, "bound_by": by, "bytes": nbytes, "flops": flops}
+    row["achieved_bytes_per_s"] = nbytes / (row["ms"] * 1e-3)
+    return row
+
+
+def _summary(name, rows, kernel, replaces, max_err, dev: dict) -> dict:
+    """One kernel row of the ``kernels`` line: the sums over ``rows``."""
+    total = {k: sum(r[k] for r in rows) for k in
+             ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops")}
+    return {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
+            "max_abs_err": max_err[kernel, torch.float32],
+            "max_abs_err_bf16": max_err[kernel, torch.bfloat16],
+            "ms": total["ms"], "kernel_ms": total["ms"], "eager_ms": total["eager_ms"],
+            "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
+            "bound_by": _bound(total["bytes"], total["flops"], dev)[1],
+            "library_ms": total["library_ms"],
+            "timed_at": "sum over x " + ", ".join(str(r["x"]) for r in rows),
+            "layouts": [r["layout"] for r in rows]}
+
+
 def phase_kernels(dev: dict) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -306,37 +375,9 @@ def phase_kernels(dev: dict) -> dict:
     shapes = []
 
     def timed(kernel, hw, cs, cg, shift, seed):
-        x, g = _inputs(BATCH, hw, cs, cg, seed, torch.float32)
-        offsets = tuple(range(20))
-        pixels = BATCH * hw[0] * hw[1]
-        ks = TM.bin_shifts(cs, cg, shift, offsets, "first")
-        banded = TM._banded(g, cs, ks)                      # [B, Cs, bins]
-        x3 = x.view(BATCH, -1, cs)
-        if kernel == "K1":
-            def k_fn(layout=None):
-                return MC.launch_matching_epilogue(x, g, shift, offsets, "first", layout)
-            p_fn = lambda: TM.matching_epilogue_plain(x, g, shift, offsets, "first")
-            out_elems = pixels * (cs + len(offsets) + 1)      # xnorm, scores, smax
-            flops = pixels * cs * (2 * len(offsets) + 3)      # products, squares, divide
-        else:
-            def k_fn(layout=None):
-                return MC.launch_matching_scores(x, g, shift, offsets, "first", layout)
-            p_fn = lambda: TM.matching_scores_plain(x, g, shift, offsets, "first")
-            out_elems = pixels * len(offsets)
-            # products; squares; masked: a window product per bin
-            flops = pixels * cs * (2 * len(offsets) + (2 * len(offsets) if cg < cs else 2))
-        nbytes = 4 * (x.numel() + g.numel() + out_elems)
-        bound, by = _bound(nbytes, flops, dev)
-        layout = MC.pick_layout(KERNEL_NAMES[kernel], x, cg, len(offsets))
-        by_layout = {lay: device_ms(lambda lay=lay: k_fn(lay))
-                     for lay in _layouts(kernel, x.shape, cg, len(offsets), x.dtype)}
-        row = {"kernel": kernel, "x": [BATCH, *hw, cs], "g": [BATCH, cg], "bins": 20,
-               "layout": layout, "ms": by_layout[layout], "ms_by_layout": by_layout,
-               "eager_ms": time_ms(k_fn), "plain_ms": device_ms(p_fn),
-               "library_ms": device_ms(lambda: torch.bmm(x3, banded)),
-               "bound_ms": bound, "bound_by": by, "bytes": nbytes, "flops": flops}
-        row["achieved_bytes_per_s"] = nbytes / (row["ms"] * 1e-3)
-        if kernel == "K2" and "tile" in by_layout:
+        row = _time_matching(kernel, BATCH, hw, cs, cg, shift, range(20), "first", dev, seed)
+        if kernel == "K2" and "tile" in row["ms_by_layout"]:
+            x, g = _inputs(BATCH, hw, cs, cg, seed, torch.float32)
             row["ms_by_tile_plan"] = _tile_plan_times(x, g, shift)
         shapes.append(row)
         return row
@@ -350,22 +391,12 @@ def phase_kernels(dev: dict) -> dict:
     emit({"phase": "kernel_times", "card": dev["nvidia_smi"], "shapes": shapes})
 
     def summary(name, rows, kernel, replaces):
-        total = {k: sum(r[k] for r in rows) for k in
-                 ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops")}
-        return {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-                "max_abs_err": max_err[kernel, torch.float32],
-                "max_abs_err_bf16": max_err[kernel, torch.bfloat16],
-                "ms": total["ms"], "kernel_ms": total["ms"], "eager_ms": total["eager_ms"],
-                "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
-                "bound_by": _bound(total["bytes"], total["flops"], dev)[1],
-                "library_ms": total["library_ms"],
-                "timed_at": "sum over x " + ", ".join(str(r["x"]) for r in rows),
-                "layouts": [r["layout"] for r in rows]}
+        return _summary(name, rows, kernel, replaces, max_err, dev)
 
     # K2 in two rows: its one launch per ori-prior forward (the full-bin
     # bottleneck stack) and its six per fov=180 forward (masked windows), so
     # that each row's ms and launches describe the same work
-    return {"checks": checks, "shapes": shapes,
+    return {"checks": checks, "shapes": shapes, "max_err": max_err,
             "summary": [summary("matching_epilogue (K1)", k1, "K1", K1_REPLACES),
                         summary("matching_scores (K2), ori-prior bottleneck", k2, "K2",
                                 K2_REPLACES),
@@ -521,6 +552,75 @@ def phase_nano_reference() -> dict:
     if n != 13:    # 6 + (6 + the full-bin bottleneck stack)
         raise AssertionError(f"NANO launched the kernels {n} times, want 13")
     info = {"phase": "nano_reference", "tolerance": tol, "max_abs_err": errs}
+    emit(info)
+    return info
+
+
+# the two other presets at full width: KITTI with and without a +-2-bin prior
+# (36 degrees: two bins of 18), Oxford RobotCar without
+PRESET_SETTINGS = {"KITTI": (dict(ori_noise=180.0), dict(ori_noise=36.0)),
+                   "OxfordRobotCar": (dict(ori_noise=180.0),)}
+
+
+def preset_scales(cfg) -> list[tuple[int, int, int, int]]:
+    """(side, Cs, Cg, shift) of each matching scale of ``cfg``: the aerial
+    descriptor grid is 8x8 and doubles per scale; Cs is the descriptor's
+    width, then each localization stage's; Cg the ground descriptor's."""
+    cs = (cfg.sat_desc_dim, *cfg.loc_conv_ch)
+    return [(8 * 2 ** s, cs[s], cfg.grd_desc_len[s], cfg.shifts[s]) for s in range(6)]
+
+
+def phase_model_presets(dev: dict) -> dict:
+    """One forward of the KITTI and the Oxford preset per setting at batch 8,
+    float32, TF32 off, on seeded BN-calibrated weights, through the kernels
+    and through the plain versions (K1 where Cg == Cs, K2 elsewhere: KITTI's
+    16 bins, 2048-d descriptor and first window; Oxford's 4x7 ground grid and
+    centred window); then each kernel at each of the preset's shapes, timed."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    info = {"phase": "model_presets", "card": dev["nvidia_smi"], "batch": BATCH,
+            "dtype": "float32", "tolerance": MODEL_TOL, "presets": {}}
+    for preset, settings in PRESET_SETTINGS.items():
+        model = api.load_model(preset=preset, seed=0)
+        _calibrate(model, seed=1)
+        plain = api.CVMModel(model.cfg, model.net, model.device, matching_impl="plain")
+        grd, sat = _images(model.cfg, BATCH, seed=2)
+        scales = preset_scales(model.cfg)
+        n_k1 = sum(cg == cs for _, cs, cg, _ in scales)
+        results = []
+        for kw in settings:
+            prior = kw["ori_noise"] < 180
+            MC.reset_launch_counts()
+            poses = model.predict_batch(grd, sat, return_heatmap=True, **kw)
+            launches = dict(MC.LAUNCHES)
+            by_layout = {f"{k} {lay}": n for (k, lay), n in MC.LAUNCHES_BY_LAYOUT.items() if n}
+            want = {"matching_epilogue": n_k1, "matching_scores": 6 - n_k1 + prior}
+            if launches != want:
+                raise AssertionError(f"{preset} {kw}: launches {launches}, want {want}")
+            out, r = model.forward_readout(grd, sat, return_heatmap=True, **kw)
+            ref, rr = plain.forward_readout(grd, sat, return_heatmap=True, **kw)
+            errs = _compare(f"{preset} {kw}", out, ref, r, rr, MODEL_TOL)
+            heading = 0.0
+            for p, q in zip(poses, plain.predict_batch(grd, sat, return_heatmap=True, **kw)):
+                if (p.row, p.col) != (q.row, q.col):
+                    raise AssertionError(f"{preset} {kw}: pose differs: {p} vs {q}")
+                if not (0 <= p.probability <= 1 and np.isfinite(p.orientation_deg)):
+                    raise AssertionError(f"{preset} {kw}: bad pose {p}")
+                heading = max(heading, abs((p.orientation_deg - q.orientation_deg + 180) % 360
+                                           - 180))
+            if heading > HEADING_TOL_DEG:
+                raise AssertionError(f"{preset} {kw}: heading differs by {heading} deg")
+            results.append({"setting": kw, "launches": launches, "launches_by_layout": by_layout,
+                            "rows": [p.row for p in poses], "cols": [p.col for p in poses],
+                            "max_abs_err": errs, "heading_err_deg": heading,
+                            "logit_spread_min": out.logits_flattened.std(dim=1).min().item()})
+        times = [_time_matching("K1" if cg == cs else "K2", BATCH, (side, side), cs, cg, shift,
+                                range(model.cfg.bins), model.cfg.window, dev, 60 + i)
+                 for i, (side, cs, cg, shift) in enumerate(scales)]
+        info["presets"][preset] = {"results": results, "times": times}
+        del model, plain
+        gc.collect()
+        torch.cuda.empty_cache()
     emit(info)
     return info
 
@@ -775,6 +875,263 @@ def _train_profile(state, batch, gen, dev: dict, out: Path | None) -> dict:
     return info
 
 
+DATA_TOL = 1e-6           # a device batch on the card against the same batch on the CPU
+FED_STEPS = 6             # one epoch of the synthetic VIGOR root: 48 panoramas, batch 8
+DATA_ROUNDS = 3           # fed and resident epochs, in turns
+
+
+def _busy_ms(events) -> tuple[float, float]:
+    """(busy ms, span ms) of the card in a profile: the union of the
+    intervals of its kernels and copies, and the time from the first one's
+    start to the last one's end.  A profiler range also shows as a span on
+    the device; those are left out."""
+    cpu = {e.name for e in events if e.device_type == torch.autograd.DeviceType.CPU}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in cpu)
+    busy, cur_start, cur_end = 0.0, None, None
+    for a, b in spans:
+        if cur_end is None or a > cur_end:
+            if cur_end is not None:
+                busy += cur_end - cur_start
+            cur_start, cur_end = a, b
+        else:
+            cur_end = max(cur_end, b)
+    if cur_end is not None:
+        busy += cur_end - cur_start
+    return busy / 1e3, (spans[-1][1] - spans[0][0]) / 1e3 if spans else 0.0
+
+
+def _steps(state, step, batches, gen, profiled: bool) -> dict:
+    """Train steps over ``batches``; the first is a warm-up, the rest are
+    timed between two CUDA events (device time per step, waits for data
+    included) and, when ``profiled``, traced for the card's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    it = iter(batches)
+    parts = [step(state, next(it), gen)]
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled else None
+    if prof is not None:
+        prof.__enter__()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    w0 = time.perf_counter()
+    a.record()
+    n = 0
+    for batch in it:
+        parts.append(step(state, batch, gen))
+        n += 1
+    b.record()
+    b.synchronize()
+    wall = time.perf_counter() - w0
+    res = {"steps": n + 1, "timed_steps": n, "step_ms": a.elapsed_time(b) / n,
+           "wall_step_ms": wall / n * 1e3, "losses": [p["loss"].item() for p in parts]}
+    if prof is not None:
+        prof.__exit__(None, None, None)
+        busy, span = _busy_ms(prof.events())
+        res.update(busy_ms_per_step=busy / n, profiled_span_ms=span,
+                   idle_share_profiled=1 - busy / span)
+    if not all(math.isfinite(v) for v in res["losses"]):
+        raise AssertionError(f"non-finite losses {res['losses']}")
+    return res
+
+
+def _check_batch(tag, got: dict, want: dict, tol: float) -> dict:
+    errs = {}
+    for k, v in want.items():
+        g = got[k]
+        if g.device.type != "cuda" or g.shape != v.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"{tag}: {k} {g.device} {tuple(g.shape)} vs {tuple(v.shape)}")
+        errs[k] = (g.cpu() - v).abs().max().item()
+        if not errs[k] <= tol:
+            raise AssertionError(f"{tag}: {k} differs from the CPU by {errs[k]} > {tol}")
+    return errs
+
+
+def phase_data(dev: dict) -> dict:
+    """The input pipeline of training on synthetic dataset roots written from
+    seeds: VIGOR (2048x1024 JPEG panoramas, 640x640 PNG tiles, 48 panoramas
+    over two cities, the cross-area split) through ``VigorIndex`` ->
+    ``VigorSampler`` -> ``Loader`` (8 threads) -> ``device_prefetch`` ->
+    ``vigor.device_batch`` -> ``make_train_step`` (full width, float32);
+    one KITTI batch through the alignment chain on the card; one Oxford
+    batch; the native decoder's batch path where it builds."""
+    import tempfile
+
+    import PIL
+
+    from ccvpe_torch.data import kitti as DK
+    from ccvpe_torch.data import native_loader
+    from ccvpe_torch.data import oxford as DO
+    from ccvpe_torch.data import pipeline as DP
+    from ccvpe_torch.data import synthetic
+    from ccvpe_torch.data import vigor as DV
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    info = {"phase": "data", "card": dev["nvidia_smi"], "batch": BATCH, "decode": "PIL",
+            "pil": PIL.__version__, "workers": 8, "tolerance": DATA_TOL}
+    with tempfile.TemporaryDirectory(prefix="ccvpe_smoke_data_") as tmp:
+        t0 = time.perf_counter()
+        root = synthetic.write_vigor_root(
+            f"{tmp}/vigor", cities=("NewYork", "Seattle"), panos_per_city=24,
+            sats_per_city=24, pano_hw=(1024, 2048), sat_hw=(640, 640), pano_ext=".jpg",
+            span=300.0, seed=0)
+        info["vigor_root_write_s"] = time.perf_counter() - t0
+        index = DV.VigorIndex.load(root, "crossarea", train=True)
+        sampler = DV.VigorSampler(index, pos_only=False)
+        order = DP.epoch_indices(len(index), shuffle=True, rng=np.random.default_rng(0))
+
+        def loader(**kw):
+            return DP.Loader(sampler, order, batch_size=BATCH, num_workers=8, **kw)
+
+        # the loader alone: host decode, resize and collation, no device work
+        t0 = time.perf_counter()
+        hosts = list(loader(native_batch=False))
+        loader_s = time.perf_counter() - t0
+        if len(hosts) != FED_STEPS:
+            raise AssertionError(f"{len(hosts)} batches from {len(index)} panoramas")
+        info["loader_batches_per_s"] = len(hosts) / loader_s
+        info["loader_ms_per_batch"] = loader_s / len(hosts) * 1e3
+        info["h2d_bytes_per_batch"] = sum(v.nbytes for v in hosts[0].values()
+                                          if v.dtype.kind in "biuf")
+
+        # one thread's PIL decode and resize of one image of each kind
+        from ccvpe_torch.data.transforms import load_image
+
+        def decode_ms(paths, hw):
+            times = []
+            for p in paths:
+                t0 = time.perf_counter()
+                load_image(str(p), hw)
+                times.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(times)
+
+        info["decode_ms"] = {"panorama_2048x1024_jpeg_to_320x640": decode_ms(
+                                 index.grd_paths[:8], DV.GRD_HW),
+                             "tile_640x640_png_to_512x512": decode_ms(
+                                 index.sat_paths[:8], DV.SAT_HW)}
+
+        # one batch on the card against the same batch on the CPU
+        fn = lambda raw: DV.device_batch(raw, train=True, device="cuda")
+        sync = fn(hosts[0])
+        info["device_batch_max_abs_err"] = _check_batch(
+            "VIGOR device batch", sync, DV.device_batch(hosts[0], train=True, device="cpu"),
+            DATA_TOL)
+
+        # the main path: steps fed from the root, the batch assembled on the
+        # side stream; then the same steps on one resident batch
+        state = _calibrated_state(cvm.VIGOR, seed=0)
+        step = TLOOP.make_train_step(cvm.VIGOR)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        prefetched = {}
+
+        def fed(epoch):
+            sampler.set_epoch(epoch)
+            for i, batch in enumerate(DP.device_prefetch(loader(native_batch=False), fn,
+                                                         device="cuda")):
+                if epoch == 0 and i == 0:
+                    prefetched.update(batch)
+                yield batch
+
+        resident = [sync] * FED_STEPS
+        fed_ms, resident_ms = [], []
+        for r in range(DATA_ROUNDS):      # in turns: fed, resident, fed, ...
+            if r == 0:
+                MC.reset_launch_counts()
+            run = _steps(state, step, fed(r), gen, profiled=False)
+            if r == 0:
+                launches = dict(MC.LAUNCHES)
+                if launches != {"matching_epilogue": 6 * FED_STEPS, "matching_scores": 0}:
+                    raise AssertionError(f"{FED_STEPS} fed steps launched {launches}")
+                info["launches"] = launches
+                info["prefetched_equals_synchronous"] = {
+                    k: torch.equal(prefetched[k], v) for k, v in sync.items()}
+                if not all(info["prefetched_equals_synchronous"].values()):
+                    raise AssertionError(f"prefetched batch differs: "
+                                         f"{info['prefetched_equals_synchronous']}")
+                prefetched.clear()
+                info["fed_losses"] = run["losses"]
+            fed_ms.append(run["step_ms"])
+            resident_ms.append(_steps(state, step, resident, gen, profiled=False)["step_ms"])
+        info["fed_step_ms"], info["resident_step_ms"] = fed_ms, resident_ms
+        info["fed_step_ms_median"] = statistics.median(fed_ms)
+        info["resident_step_ms_median"] = statistics.median(resident_ms)
+        # the card's idle share: kernel and copy time per step from a
+        # profiled epoch over the step time of the unprofiled runs (the
+        # profiler slows the host), and the share idle under the profiler
+        for name, batches, ms in (("fed", fed(DATA_ROUNDS), fed_ms),
+                                  ("resident", resident, resident_ms)):
+            prof = _steps(state, step, batches, gen, profiled=True)
+            prof["idle_share"] = 1 - prof["busy_ms_per_step"] / statistics.median(ms)
+            del prof["losses"]
+            info[f"{name}_profiled"] = prof
+        info["device_batch_ms"] = time_ms(lambda: fn(hosts[0]), reps=5, warmup=1)
+        sampler.set_epoch(0)
+        del state, sync, resident
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the native decoder's batch path (opt-in, as in the JAX package)
+        if native_loader.available():
+            t0 = time.perf_counter()
+            native = list(loader(native_batch=True))
+            native_s = time.perf_counter() - t0
+            diff = {k: int(np.abs(a[k].astype(int) - b[k].astype(int)).max())
+                    for a, b in zip(native[:1], hosts[:1]) for k in ("grd", "sat")}
+            for a, b in zip(native, hosts):
+                for k in ("rotation", "angle", "row_offset", "col_offset", "city"):
+                    np.testing.assert_array_equal(a[k], b[k])
+                for k in ("grd", "sat"):
+                    if np.abs(a[k].astype(int) - b[k].astype(int)).mean() >= 1.0:
+                        raise AssertionError(f"native {k} differs from PIL's")
+            info["native"] = {"ran": True, "batches_per_s": len(native) / native_s,
+                              "max_abs_diff_vs_pil_first_batch": diff}
+        else:
+            info["native"] = {"ran": False, "build_error": native_loader.build_error()}
+        del hosts
+
+        # KITTI: ground 1242x375, aerial 1280x1280, the alignment chain on the card
+        root = synthetic.write_kitti_root(f"{tmp}/kitti", n=BATCH, grd_hw=(375, 1242),
+                                          sat_hw=(1280, 1280), seed=1)
+        kidx = DK.KittiIndex.load(root, f"{root}/train_files.txt")
+        ks = DK.KittiSampler(kidx, device_augment=True)
+        (raw,) = list(DP.Loader(ks, np.arange(BATCH), batch_size=BATCH, num_workers=8))
+        kw = dict(train=True, mpp=ks.mpp)
+        card = DK.device_batch_device_aug(raw, device="cuda", **kw)
+        cpu = DK.device_batch_device_aug(raw, device="cpu", **kw)
+        sat = (card["sat"].cpu() - cpu["sat"]).abs()
+        # tests/test_data.py:481-504: normalised units within 0.05
+        close = (sat < 0.05).float().mean().item()
+        if not close > 0.95:
+            raise AssertionError(f"KITTI chain on the card agrees with the CPU at {close}")
+        info["kitti"] = {
+            "sat_raw": list(raw["sat_raw"].shape), "close_share": close,
+            "equal_share": (sat.amax(dim=-1) <= DATA_TOL).float().mean().item(),
+            "max_abs_err": _check_batch("KITTI device batch",
+                                        {k: v for k, v in card.items() if k != "sat"},
+                                        {k: v for k, v in cpu.items() if k != "sat"}, DATA_TOL),
+            # host arrays in (39 MB of raw tiles copied), device batch out
+            "device_batch_ms": time_ms(
+                lambda: DK.device_batch_device_aug(raw, device="cuda", **kw), reps=5, warmup=1)}
+        del card, cpu, raw
+
+        # Oxford: a 4000x4000 aerial map, 1280x960 ground frames
+        root = synthetic.write_oxford_root(f"{tmp}/oxford/", n=BATCH, map_hw=(4000, 4000),
+                                           grd_hw=(960, 1280), seed=2)
+        oidx = DO.OxfordIndex.load(root, root + "satellite_map_new.png", "train")
+        (raw,) = list(DP.Loader(DO.OxfordSampler(oidx), np.arange(BATCH), batch_size=BATCH,
+                                num_workers=8))
+        card = DO.device_batch(raw, train=True, device="cuda")
+        info["oxford"] = {"grd": list(card["grd"].shape), "sat": list(card["sat"].shape),
+                          "max_abs_err": _check_batch(
+                              "Oxford device batch", card,
+                              DO.device_batch(raw, train=True, device="cpu"), DATA_TOL)}
+    emit(info)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info
+
+
 def phase_timing(dev: dict, model: api.CVMModel, out: Path | None) -> dict:
     grd, sat = _images(model.cfg, BATCH, seed=6)
     res = {"phase": "timing", "card": dev["nvidia_smi"], "batch": BATCH, "dtype": "float32"}
@@ -851,12 +1208,15 @@ def main(argv=None) -> int:
     phase_build(args.out)
     kern = phase_kernels(dev)
     model, net = phase_model(dev)
+    presets = phase_model_presets(dev)
     train = phase_train(dev, args.out)
+    data = phase_data(dev)
     timing = phase_timing(dev, net, args.out)
     summary = kern["summary"]
     per = model["launches_per_setting"]   # (K1, K2) per setting
     by_path = {"predict_batch": model["launches"]["matching_epilogue"],
-               "train_step": train["launches"]["matching_epilogue"]}
+               "train_step": train["launches"]["matching_epilogue"],
+               "train_step_fed": data["launches"]["matching_epilogue"]}
     summary[0]["launches"] = sum(by_path.values())
     summary[0]["launches_by_path"] = by_path
     summary[0]["backward"] = "autograd through the plain version"
@@ -866,9 +1226,28 @@ def main(argv=None) -> int:
     if summary[1]["launches"] + summary[2]["launches"] != model["launches"]["matching_scores"]:
         raise AssertionError(f"K2 launches {model['launches']} are not the prior's and "
                              f"fov=180's ({summary[1]['launches']}, {summary[2]['launches']})")
+    # the KITTI and Oxford forwards: each kernel's row sums its times at the
+    # preset's shapes (one all-bin forward) and counts its launches over the
+    # preset's settings; the error is the model's stacks, kernel vs plain
+    for preset, p in presets["presets"].items():
+        stacks = max(r["max_abs_err"]["stacks"] for r in p["results"])
+        for kernel, name, replaces in (("K1", "matching_epilogue", K1_REPLACES),
+                                       ("K2", "matching_scores", K2_REPLACES)):
+            rows = [r for r in p["times"] if r["kernel"] == kernel]
+            if not rows:
+                continue
+            row = _summary(f"{name} ({kernel}), {preset}", rows, kernel, replaces,
+                           kern["max_err"], dev)
+            row["launches"] = sum(r["launches"][name] for r in p["results"])
+            row["launches_by_setting"] = {json.dumps(r["setting"]): r["launches"][name]
+                                          for r in p["results"]}
+            row["max_abs_err"] = stacks
+            summary.append(row)
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(json.dumps(
-            {"device": dev, "kernels": kern, "model": model, "train": train, "timing": timing,
+            {"device": dev, "kernels": {k: v for k, v in kern.items() if k != "max_err"},
+             "model": model, "model_presets": presets, "train": train, "data": data,
+             "timing": timing,
              "seconds": time.perf_counter() - t0}, indent=1))
     emit({"kernels": summary})
     print(dev["nvidia_smi"], flush=True)

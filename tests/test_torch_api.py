@@ -126,3 +126,35 @@ def test_ori_noise_to_n_matches_jax():
 def test_load_model_rejects_other_checkpoint_formats():
     with pytest.raises(ValueError, match=r"\.pt"):
         TA.load_model("/nonexistent/orbax_dir", preset="NANO", device="cpu")
+
+
+def test_heatmap_readout_takes_the_heatmaps_first_maximum():
+    """Two distinct logits that round to one f32 softmax value: with the
+    heatmap asked for, the peak is the heatmap's row-major first maximum
+    (index 0 here), as ``ccvpe_tpu.ops.readout.pose_readout`` reads it, not
+    the logits' (index 1)."""
+    from ccvpe_tpu.ops import readout as JR
+
+    h = w = 512
+    logits = torch.full((2, h * w), -10.0)
+    logits[:, 0], logits[:, 1] = 0.0, 1e-8
+    logits[1, 7 * w + 3] = 5.0                 # a clear peak: no tie
+    heatmap = torch.softmax(logits, dim=-1).reshape(2, h, w, 1)
+    hm = heatmap[0, ..., 0].reshape(-1)
+    assert logits[0].argmax() == 1 and hm[0] == hm[1] and hm.argmax() == 0
+    ori = torch.from_numpy(np.random.default_rng(0).standard_normal((2, h, w, 2),
+                                                                    dtype=np.float32))
+    out = TC.CVMOutputs(logits, heatmap, ori, ())
+    r = pose_readout(out, want_heatmap=True)
+    want = JR.pose_readout(jnp.asarray(heatmap.numpy()), jnp.asarray(ori.numpy()),
+                           jnp.asarray(heatmap.numpy()), jnp.asarray(ori.numpy()))
+    np.testing.assert_array_equal(r["row"].numpy(), np.asarray(want["pred_row"]))
+    np.testing.assert_array_equal(r["col"].numpy(), np.asarray(want["pred_col"]))
+    assert r["row"].tolist() == [0, 7] and r["col"].tolist() == [0, 3]
+    np.testing.assert_array_equal(r["cos"].numpy(), np.asarray(want["cos_pred"]))
+    np.testing.assert_array_equal(r["sin"].numpy(), np.asarray(want["sin_pred"]))
+    # the probability is the heatmap's value at that pixel (= prob_at_gt
+    # here, the GT being the same heatmap)
+    np.testing.assert_array_equal(r["prob"].numpy(), np.asarray(want["prob_at_gt"]))
+    # without the heatmap the logits' path stays: its first maximum
+    assert pose_readout(out)["col"].tolist() == [1, 3]

@@ -1,9 +1,9 @@
 """ccvpe_torch.ops.gt against ccvpe_tpu.ops.gt on seeded offsets and angles.
 
 Tolerances:
-* Heatmaps: atol 5e-6.  ``torch.linspace`` and ``jnp.linspace`` round about
-  half the points of a 512-point float32 grid one ulp apart (3.1e-5 at
-  +-256 px), and the Gaussian's steepest slope is exp(-1/2)/sigma = 0.15
+* Heatmaps: atol 5e-6.  The port's grid (rounded from float64) and
+  ``jnp.linspace`` (float32, rewritten by XLA) put about a third of the
+  points of a 512-point grid one ulp apart (3.1e-5 at +-256 px), and the Gaussian's steepest slope is exp(-1/2)/sigma = 0.15
   per px, so the heatmaps may differ by up to 4.6e-6.
 * Bin weights and orientation fields: atol 1e-6 (float32 divisions,
   remainders, cos and sin of the same inputs).

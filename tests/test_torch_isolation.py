@@ -68,3 +68,17 @@ def test_entry_points_need_cuda_unless_told_otherwise():
     state = create_train_state(NANO, device="cpu")
     assert state.model.training
     assert {p.device for p in state.model.parameters()} == {torch.device("cpu")}
+
+
+def test_native_loader_lives_outside_the_jax_package():
+    """The port's C++ decoder is its own copy, built into its own gitignored
+    directory: neither its source nor its library is under ``ccvpe_tpu/``."""
+    from ccvpe_torch.data import native_loader
+
+    jax_tree = (ROOT / "ccvpe_tpu").resolve()
+    assert native_loader.SOURCE == ROOT / "ccvpe_torch" / "csrc" / "dataloader.cc"
+    assert native_loader.SOURCE.exists()
+    assert native_loader.BUILD_DIR == ROOT / "build" / "ccvpe_torch_native"
+    for path in (native_loader.SOURCE, native_loader.BUILD_DIR, native_loader.library_path()):
+        assert jax_tree not in path.resolve().parents
+    assert native_loader.library_path().parent == native_loader.BUILD_DIR
