@@ -93,6 +93,13 @@ class CVMModel:
                 heatmap=r["heatmap"][i] if return_heatmap else None))
         return poses
 
+    def save_torch(self, path: str) -> None:
+        """Write a reference-format ``.pt`` of this model's weights and BN
+        statistics (``io.from_jax.save_state_dict``; JAX ``api.py:233``)."""
+        from .io.from_jax import save_state_dict
+
+        save_state_dict(self.net, path)
+
     def predict(self, grd: np.ndarray, sat: np.ndarray, *,
                 ori_noise: float = 180.0, fov: float = 360.0,
                 return_heatmap: bool = False) -> Pose:

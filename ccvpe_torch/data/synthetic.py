@@ -111,12 +111,13 @@ def _pixel_to_utm():
 
 
 def write_oxford_root(root: str, *, n: int = 8, map_hw=(2400, 2400), grd_hw=(77, 115),
-                      seed: int = 0) -> str:
+                      test_frames: int = 2, seed: int = 0) -> str:
     """An Oxford RobotCar root (``root`` ends with ``/``, as the reference's
     loaders expect): one stitched aerial map ``satellite_map_new.png``,
     ``n`` ground frames whose UTM positions fall inside the map at least
     700 px from its edge, ``training.txt``/``validation.txt`` over all of
-    them, ``test{1,2,3}_j.txt`` over two each, and the yaw files."""
+    them, ``test{1,2,3}_j.txt`` over ``test_frames`` consecutive frames each
+    (``3 * test_frames <= n``), and the yaw files."""
     rng = np.random.default_rng(seed)
     _write_image(root + "satellite_map_new.png", (seed, 1), map_hw)
     pix = np.stack([rng.uniform(700, map_hw[1] - 700, n),
@@ -129,8 +130,8 @@ def write_oxford_root(root: str, *, n: int = 8, map_hw=(2400, 2400), grd_hw=(77,
         np.save(root + yaw, rng.uniform(0, 2 * np.pi, n))
     for i, t in enumerate(("test1_j.txt", "test2_j.txt", "test3_j.txt")):
         with open(root + t, "w") as f:
-            f.write("\n".join(lines[2 * i:2 * i + 2]) + "\n")
-    np.save(root + "test_yaw.npy", rng.uniform(0, 2 * np.pi, 6))
+            f.write("\n".join(lines[test_frames * i:test_frames * (i + 1)]) + "\n")
+    np.save(root + "test_yaw.npy", rng.uniform(0, 2 * np.pi, 3 * test_frames))
     for i in range(n):
         _write_image(root + f"g{i}.png", (seed, 2, i), grd_hw)
     return root

@@ -1,0 +1,132 @@
+"""Full-state checkpoints and resume (counterpart of
+``ccvpe_tpu/io/checkpoint.py``).
+
+The reference saves model weights once per epoch and cannot resume its
+optimizer (``train_VIGOR.py:159-163``).  Here the whole train state -- the
+model's parameters and BatchNorm buffers, Adam's state and the step --
+goes through ``torch.save`` into one file per step, ``ckpt_<step>.pt``,
+so training can checkpoint every N steps and resume after preemption.
+
+Every file is written to a temporary name and renamed into place, so a
+save cut short never shows as a step.  A sidecar ``latest_meta.json``
+holds the newest save's position (epoch, completed); it is replaced only
+after its step's state file has landed, and is trusted only for that step.
+Saves are synchronous.  Under ``torch.distributed`` only rank 0 writes
+(the state is replicated); every rank reads.
+
+The JAX package's orbax checkpoints are not readable here: the format
+the two packages share is the reference ``.pt`` of the weights
+(``io.from_jax.load_state_dict``/``save_state_dict``).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+
+import torch
+
+from ..data.pipeline import _process_index
+
+META = "latest_meta.json"
+_STEP_FILE = re.compile(r"^ckpt_(\d+)\.pt$")
+
+
+def _atomic_write(path: str, write) -> None:
+    """``write(tmp_path)``, then rename onto ``path`` (same directory)."""
+    tmp = os.path.join(os.path.dirname(path), f".{os.path.basename(path)}.{os.getpid()}.tmp")
+    try:
+        write(tmp)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+class CheckpointManager:
+    """Checkpoints of a ``train.loop.TrainState`` in ``directory``.
+
+    ``max_to_keep``: the newest steps retained; ``None`` or 0 keeps every
+    step (the reference keeps every epoch's file).  Only the process of
+    rank 0 (``torch.distributed``; 0 without a process group) writes."""
+
+    def __init__(self, directory: str, max_to_keep: int | None = 3):
+        self._dir = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep or None
+
+    def path(self, step: int) -> str:
+        return os.path.join(self._dir, f"ckpt_{int(step)}.pt")
+
+    def save(self, step: int, state, wait: bool = True, meta: dict | None = None) -> None:
+        """Write ``state``'s model, optimizer and step as ``step``, then the
+        sidecar ``meta`` (when given), then drop steps past
+        ``max_to_keep``.  Synchronous: ``wait`` is accepted for the JAX
+        signature and has nothing to wait for."""
+        if _process_index() != 0:
+            return
+        os.makedirs(self._dir, exist_ok=True)
+        payload = {"step": int(state.step), "model": state.model.state_dict(),
+                   "optimizer": state.optimizer.state_dict()}
+        _atomic_write(self.path(step), lambda tmp: torch.save(payload, tmp))
+        if meta is not None:
+            self.save_meta(step, meta)
+        if self.max_to_keep:
+            for old in self.all_steps()[:-self.max_to_keep]:
+                os.remove(self.path(old))
+
+    def save_meta(self, step: int, meta: dict) -> None:
+        """(Re)write the sidecar for ``step``, whose state file must have
+        landed -- e.g. to mark a mid-epoch save as the epoch's end."""
+        if _process_index() != 0:
+            return
+        if not os.path.exists(self.path(step)):
+            raise FileNotFoundError(f"no checkpoint of step {step} in {self._dir}: "
+                                    "the sidecar follows its state file")
+
+        def write(tmp):
+            with open(tmp, "w") as f:
+                json.dump({"step": int(step), **meta}, f)
+
+        _atomic_write(os.path.join(self._dir, META), write)
+
+    def meta(self, step: int) -> dict:
+        """The sidecar written with ``step``'s save; ``{}`` when absent or
+        written for another step."""
+        try:
+            with open(os.path.join(self._dir, META)) as f:
+                rec = json.load(f)
+        except (OSError, ValueError):
+            return {}
+        return rec if rec.get("step") == int(step) else {}
+
+    def all_steps(self) -> list[int]:
+        """The steps on disk, ascending."""
+        try:
+            names = os.listdir(self._dir)
+        except FileNotFoundError:
+            return []
+        return sorted(int(m.group(1)) for m in map(_STEP_FILE.match, names) if m)
+
+    def latest_step(self) -> int | None:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def restore(self, state, step: int | None = None):
+        """Load ``step`` (default: the latest) into ``state``'s live model
+        and optimizer, on their device and in their memory format, bit for
+        bit, and set ``state.step``; returns ``state``."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {self._dir}")
+        # onto the host: the model copies into its tensors in place and
+        # Adam moves each moment to its parameter's device (keeping the
+        # saved strides) and keeps ``step`` on the host, where it lives
+        saved = torch.load(self.path(step), map_location="cpu", weights_only=True)
+        state.model.load_state_dict(saved["model"], strict=True)
+        state.optimizer.load_state_dict(saved["optimizer"])
+        state.step = int(saved["step"])
+        return state
+
+    def close(self) -> None:
+        """Nothing is in flight: saves are synchronous."""

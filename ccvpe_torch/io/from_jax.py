@@ -1,5 +1,5 @@
 """Weights into the port: from the JAX package's parameter trees, and from
-reference-format ``.pt`` checkpoints.
+reference-format ``.pt`` checkpoints (and back out to them).
 
 ``state_dict_from_jax`` is the port's own copy of the layout rules of
 ``ccvpe_tpu/io/torch_import.py::export_cvm``:
@@ -127,3 +127,11 @@ def load_state_dict(path) -> dict[str, torch.Tensor]:
     """Read a reference-format ``.pt`` checkpoint (``torch.save`` of a
     state_dict) onto the CPU."""
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def save_state_dict(module: torch.nn.Module, path) -> None:
+    """Write ``module``'s state_dict as a reference-format ``.pt``: contiguous
+    CPU tensors under the reference's key names, readable by
+    ``load_state_dict`` here and ``ccvpe_tpu.io.torch_import.load_state_dict``
+    (JAX ``io/torch_import.py::save_torch_checkpoint``)."""
+    torch.save({k: v.detach().cpu().contiguous() for k, v in module.state_dict().items()}, path)

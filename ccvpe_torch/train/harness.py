@@ -1,0 +1,314 @@
+"""The trainer and evaluator of the three CLIs (counterpart of
+``ccvpe_tpu/train/harness.py``), on one device.
+
+One harness drives any dataset: host ``Loader`` -> ``device_prefetch``
+(batch N+1 copied and assembled on a side stream while step N runs) ->
+the train step; full-state checkpoints (``io.checkpoint``) every epoch and
+every N steps; evaluation through the fused eval-readout step; and the
+reference's results files (one scalar appended per epoch) plus a JSON
+summary per epoch.
+
+The JAX trainer's device mesh has no counterpart: this one runs on
+``device`` (default ``cuda``).  Its tensor-parallel, ZeRO-1, bfloat16 and
+rematerialisation options are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..data.pipeline import _process_index, device_prefetch
+from ..io.checkpoint import CheckpointManager
+from ..utils import profiling
+from . import loop as train_loop
+from .metrics import PoseErrorAccumulator
+
+
+def append_result(results_dir: str, name: str, epoch: int, value: float, header: str):
+    """np.savetxt-append format of the reference (``train_VIGOR.py:221-241``)."""
+    os.makedirs(results_dir, exist_ok=True)
+    with open(os.path.join(results_dir, name), "ab") as f:
+        np.savetxt(f, [value], fmt="%4f", header=header, comments=f"{epoch}_")
+
+
+def _not_ported(what: str, item: str) -> ValueError:
+    return ValueError(f"{what} is not ported to ccvpe_torch yet (ROADMAP.md Queue 1 {item})")
+
+
+class Trainer:
+    def __init__(self, model_cfg, *, learning_rate: float = 1e-4,
+                 weight_info_nce: float = 1e4, weight_ori: float = 1e1,
+                 checkpoint_dir: str | None = None, results_dir: str = "results",
+                 label: str = "run", log_every: int = 200, seed: int = 17,
+                 batch_size: int | None = None, profile_dir: str | None = None,
+                 compute_dtype: str = "float32", remat: bool | str = False,
+                 checkpoint_every_steps: int = 0, param_dtype: str = "float32",
+                 matching_impl: str = "kernel", n_model: int = 1,
+                 keep_checkpoints: int | None = 3, zero1: bool = False,
+                 grad_accum: int = 1, device: str | torch.device | None = None):
+        """The JAX trainer's arguments less ``mesh``, plus ``device``.
+        ``matching_impl``: 'kernel' (the CUDA kernels on a CUDA device) or
+        'plain'.  ``keep_checkpoints``: retained checkpoints, ``None``/0
+        keeps every step.  ``checkpoint_every_steps``: also save mid-epoch
+        (0: at epoch ends only)."""
+        if n_model != 1:
+            raise _not_ported(f"n_model={n_model} (tensor parallelism)", "item 7")
+        if zero1:
+            raise _not_ported("zero1 (sharded optimizer state)", "item 7")
+        if compute_dtype != "float32":
+            raise _not_ported(f"compute_dtype={compute_dtype!r}", "item 3")
+        if param_dtype != "float32":
+            raise _not_ported(f"param_dtype={param_dtype!r}", "item 3")
+        if remat:
+            raise _not_ported(f"remat={remat!r}", "item 3")
+        if batch_size and batch_size % grad_accum:
+            raise ValueError(f"batch {batch_size} must be divisible by grad_accum={grad_accum}")
+        self.model_cfg = model_cfg
+        self.device = resolve_device(device)
+        self.learning_rate = learning_rate
+        self.results_dir = results_dir
+        self.label = label
+        self.log_every = log_every
+        self.matching_impl = matching_impl
+        # drop-connect draws; seeded once and, as the JAX trainer's PRNG
+        # key, not restored on resume
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._train_step = train_loop.make_train_step(
+            model_cfg, weight_info_nce=weight_info_nce, weight_ori=weight_ori,
+            grad_accum=grad_accum, matching_impl=matching_impl)
+        self._eval_steps: dict = {}
+        self.ckpt = (CheckpointManager(checkpoint_dir, max_to_keep=keep_checkpoints or None)
+                     if checkpoint_dir else None)
+        self.state: train_loop.TrainState | None = None
+        self.profile_dir = profile_dir
+        self._profiled = False
+        self.checkpoint_every_steps = checkpoint_every_steps
+        self._global_step = 0
+        # the epoch the CLI loop starts at; resume() takes it from the
+        # checkpoint's sidecar
+        self.start_epoch = 0
+
+    # -- state ------------------------------------------------------------
+    def init_state(self, seed: int = 17, pretrained_b0: str | None = None):
+        if pretrained_b0 is not None:
+            raise _not_ported("pretrained_b0", "item 3")
+        self.state = train_loop.create_train_state(self.model_cfg, seed=seed, device=self.device,
+                                                   learning_rate=self.learning_rate)
+        return self.state
+
+    def load_torch_checkpoint(self, path: str):
+        """Weights from a reference-format ``.pt``, a fresh Adam, step 0."""
+        from ..io.from_jax import load_state_dict
+
+        self.state = train_loop.train_state_from_torch(
+            load_state_dict(path), self.model_cfg, device=self.device,
+            learning_rate=self.learning_rate)
+        return self.state
+
+    def resume(self) -> bool:
+        """Restore the latest checkpoint, if any.  A completed epoch resumes
+        at the next one; a mid-epoch save re-runs its epoch from the start
+        (the loader's order is keyed by epoch, not by step); a save without
+        a sidecar resumes at epoch 0."""
+        if not self.ckpt or self.ckpt.latest_step() is None:
+            return False
+        if self.state is None:
+            self.init_state()
+        step = self.ckpt.latest_step()
+        self.ckpt.restore(self.state, step)
+        self._global_step = self.state.step
+        meta = self.ckpt.meta(step)
+        self.start_epoch = (int(meta["epoch"]) + bool(meta.get("completed"))
+                            if "epoch" in meta else 0)
+        return True
+
+    # -- train ------------------------------------------------------------
+    def train_epoch(self, loader, device_batch_fn: Callable, epoch: int) -> float:
+        """One pass over ``loader``; returns train pairs/s (up to the last
+        step's end, the end-of-epoch save left out).
+
+        The global step advances every batch; a mid-epoch checkpoint every
+        ``checkpoint_every_steps``; the end-of-epoch save is keyed by the
+        global step, so epoch N restores as epoch N.  The running loss sums
+        on the device: the only syncs are the ``log_every`` print and the
+        checkpoint writes.  With ``profile_dir``, steps 10-13 (from step 0
+        in epochs of 13 batches or fewer) are traced once into it.
+        """
+        assert self.state is not None, "call init_state() first"
+        timer = profiling.StepTimer()
+        running, t0, n, pairs = None, time.time(), 0, 0
+        try:
+            n_batches = len(loader)
+        except TypeError:
+            n_batches = None
+        trace_start = 10 if (n_batches is None or n_batches > 13) else 0
+        tracer = None
+        feed = device_prefetch(loader, device_batch_fn, device=self.device)
+        for i, batch in enumerate(feed):
+            timer.start()
+            if self.profile_dir and not self._profiled and i == trace_start:
+                tracer = contextlib.ExitStack()
+                tracer.enter_context(profiling.trace(self.profile_dir))
+            parts = self._train_step(self.state, batch, self.generator)
+            if tracer is not None and i == trace_start + 3:
+                tracer.close()
+                tracer, self._profiled = None, True
+            loss = parts["loss"]
+            running = loss if running is None else running + loss
+            n += 1
+            self._global_step += 1
+            pairs += int(batch["gt"].shape[0])
+            if (i + 1) % self.log_every == 0:
+                avg = running.item() / n
+                print(f"[{epoch}, {i + 1:5d}] loss: {avg:.3f} "
+                      f"({pairs / (time.time() - t0):.1f} pairs/s)")
+                running, n = None, 0
+            if (self.ckpt and self.checkpoint_every_steps
+                    and self._global_step % self.checkpoint_every_steps == 0):
+                self.ckpt.save(self._global_step, self.state,
+                               meta={"epoch": epoch, "completed": False})
+            timer.stop()
+        if tracer is not None:
+            # the epoch ended inside the capture window
+            tracer.close()
+            self._profiled = True
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        elapsed = time.time() - t0
+        if self.ckpt:
+            if self.ckpt.latest_step() != self._global_step:
+                self.ckpt.save(self._global_step, self.state,
+                               meta={"epoch": epoch, "completed": True})
+            else:
+                # a mid-epoch save landed on this very step: mark it as the
+                # epoch's end so that resume starts at the next epoch
+                self.ckpt.save_meta(self._global_step, {"epoch": epoch, "completed": True})
+        stats = timer.summary()
+        if stats:
+            # host times: a step's issue and the wait for its batch; the
+            # log_every and checkpoint steps absorb the device syncs
+            print(f"epoch {epoch} step time: p50 {stats['p50_ms']:.0f} ms "
+                  f"p95 {stats['p95_ms']:.0f} ms over {stats['steps']} steps")
+        return pairs / max(elapsed, 1e-9)
+
+    # -- eval -------------------------------------------------------------
+    def _get_eval_step(self, loc_offsets, readout: bool = False):
+        key = (tuple(loc_offsets) if loc_offsets is not None else None, readout)
+        if key not in self._eval_steps:
+            make = train_loop.make_eval_readout_step if readout else train_loop.make_eval_step
+            self._eval_steps[key] = make(self.model_cfg, loc_offsets,
+                                         matching_impl=self.matching_impl)
+        return self._eval_steps[key]
+
+    def evaluate(self, loader, device_batch_fn: Callable, *, meter_per_pixel,
+                 loc_offsets=None, cities_to_mpp=None, with_heading: bool = False,
+                 device_readout: bool = True) -> dict:
+        """A full eval pass; returns the metric summary with ``pairs_per_sec``.
+
+        ``meter_per_pixel``: a scalar, or None with ``cities_to_mpp`` to
+        convert per sample from the batch's 'city' field (VIGOR, reference
+        ``train_VIGOR.py:193-200``).  ``with_heading``: also the lateral and
+        longitudinal errors from the batch's 'orientation_from_north'.
+
+        ``device_readout``: reduce each sample to its pose scalars on the
+        device (``make_eval_readout_step``) and fetch those, batch N's
+        while batch N+1 runs; else fetch the full heatmaps (the same metrics
+        except where two logits round to one softmax value).
+        """
+        assert self.state is not None
+        model = self.state.model
+        step = self._get_eval_step(loc_offsets, readout=device_readout)
+        acc = PoseErrorAccumulator()
+        t0, pairs = time.time(), 0
+
+        def mpp_of(raw, b):
+            if cities_to_mpp is not None:
+                return np.asarray([cities_to_mpp[c] for c in raw["city"]], np.float32)
+            return np.full(b, meter_per_pixel, np.float32)
+
+        if device_readout:
+            def prepare(raw):
+                batch = device_batch_fn(raw)
+                batch["mpp"] = mpp_of(raw, int(batch["gt"].shape[0]))
+                if with_heading:
+                    batch["heading"] = torch.as_tensor(raw["orientation_from_north"],
+                                                       dtype=torch.float32)
+                return batch
+
+            cuda = self.device.type == "cuda"
+
+            def fetch(r):
+                # batch N's scalars start for the host right behind its
+                # forward; flush waits for that copy only, not for the
+                # forward of batch N+1 issued after it
+                host = {k: v.to("cpu", non_blocking=cuda) for k, v in r.items()}
+                done = None
+                if cuda:
+                    done = torch.cuda.Event()
+                    done.record()
+                return host, done
+
+            def flush(pending):
+                nonlocal pairs
+                (host, done), mpp = pending
+                if done is not None:
+                    done.synchronize()
+                r = {k: v.numpy() for k, v in host.items()}
+                heading = r.pop("heading", None)
+                acc.update_from_readout(r, mpp, orientation_from_north=heading)
+                pairs += len(mpp)
+
+            pending = None
+            for batch in device_prefetch(loader, prepare, device=self.device):
+                r = step(model, batch["grd"], batch["sat"], batch["gt"], batch["orientation"])
+                if with_heading:
+                    r["heading"] = batch["heading"]
+                current = (fetch(r), batch["mpp"])
+                if pending is not None:
+                    flush(pending)
+                pending = current
+            if pending is not None:
+                flush(pending)
+        else:
+            for raw in loader:
+                batch = device_batch_fn(raw)
+                b = int(batch["gt"].shape[0])
+                out = step(model, batch["grd"], batch["sat"])
+                acc.update(out.heatmap.cpu().numpy(), batch["gt"].cpu().numpy()[..., None],
+                           out.ori.cpu().numpy(), batch["orientation"].cpu().numpy(),
+                           mpp_of(raw, b),
+                           orientation_from_north=(
+                               np.asarray(raw["orientation_from_north"], np.float32)
+                               if with_heading else None))
+                pairs += b
+        summary = acc.summary()
+        summary["pairs_per_sec"] = pairs / max(time.time() - t0, 1e-9)
+        return summary
+
+    def write_epoch_results(self, epoch: int, summary: dict, prefix: str = ""):
+        """Append the epoch's four headline metrics to the reference's
+        results files and the whole summary to ``{label}_{prefix}summary.json``;
+        rank 0 only."""
+        if _process_index() != 0:
+            return
+        mapping = {
+            "mean_distance_m": "mean_distance_error",
+            "median_distance_m": "median_distance_error",
+            "mean_orientation_deg": "mean_orientation_error",
+            "median_orientation_deg": "median_orientation_error",
+        }
+        for key, stem in mapping.items():
+            if key in summary:
+                append_result(self.results_dir, f"{self.label}_{prefix}{stem}.txt", epoch,
+                              summary[key], f"{self.label}_{prefix}{stem}:")
+        with open(os.path.join(self.results_dir, f"{self.label}_{prefix}summary.json"),
+                  "a") as f:
+            f.write(json.dumps({"epoch": epoch, **summary}) + "\n")

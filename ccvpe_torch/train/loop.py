@@ -10,6 +10,10 @@ update with the reference's hyperparameters.
     step = make_train_step(cvm.VIGOR)
     parts = step(state, batch, generator)
 
+The eval steps run the forward in eval mode without autograd:
+``make_eval_step`` returns the model's outputs, ``make_eval_readout_step``
+the per-sample pose scalars of ``ops.readout.pose_readout_from_outputs``.
+
 ``batch`` is the JAX step's dict, NHWC: ``grd`` and ``sat`` (ImageNet-
 normalised floats), ``gt`` [B, H, W], ``bin_weights`` [B, bins],
 ``orientation`` [B, H, W, 2] (``ops.gt.synthesize_batch_factored``).
@@ -47,15 +51,32 @@ def make_optimizer(params, learning_rate: float = 1e-4) -> torch.optim.Adam:
     return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
 
 
+def _state_for(model: cvm.CVM, device: torch.device, learning_rate: float) -> TrainState:
+    model = model.to(device=device, memory_format=torch.channels_last).train()
+    return TrainState(model, make_optimizer(model.parameters(), learning_rate))
+
+
 def create_train_state(cfg: cvm.CVMConfig, seed: int = 0,
-                       device: str | torch.device | None = None) -> TrainState:
+                       device: str | torch.device | None = None,
+                       learning_rate: float = 1e-4) -> TrainState:
     """A seeded model in train mode, channels_last on ``device`` (default
     ``cuda``; raises when CUDA is absent and no device was asked for), and
     its optimizer."""
     device = resolve_device(device)
     model = cvm.CVM(cfg).init_weights_(torch.Generator().manual_seed(seed))
-    model = model.to(device=device, memory_format=torch.channels_last).train()
-    return TrainState(model, make_optimizer(model.parameters()))
+    return _state_for(model, device, learning_rate)
+
+
+def train_state_from_torch(state_dict: dict, cfg: cvm.CVMConfig, *,
+                           device: str | torch.device | None = None,
+                           learning_rate: float = 1e-4) -> TrainState:
+    """A train state from a reference-format state_dict
+    (``io.from_jax.load_state_dict``): its weights and BN statistics, a
+    fresh Adam and step 0 (JAX ``train/loop.py::train_state_from_torch``)."""
+    device = resolve_device(device)
+    model = cvm.CVM(cfg)
+    model.load_state_dict(state_dict, strict=True)
+    return _state_for(model, device, learning_rate)
 
 
 @contextlib.contextmanager
@@ -122,14 +143,33 @@ def make_train_step(cfg: cvm.CVMConfig, *, weight_info_nce: float = 1e4,
     return train_step
 
 
-def make_eval_step(cfg: cvm.CVMConfig, loc_offsets=None):
+def make_eval_step(cfg: cvm.CVMConfig, loc_offsets=None, matching_impl: str = "kernel"):
     """The eval forward for ``cfg``: ``step(model, grd, sat) -> CVMOutputs``,
-    BatchNorm on its running statistics, no autograd; ``loc_offsets`` as
-    ``CVM.forward`` takes them (None: all bins).  The model keeps its mode."""
+    BatchNorm on its running statistics, no autograd; ``loc_offsets`` and
+    ``matching_impl`` as ``CVM.forward`` takes them (None: all bins).  The
+    model keeps its mode."""
 
     def eval_step(model: cvm.CVM, grd: torch.Tensor, sat: torch.Tensor) -> cvm.CVMOutputs:
         _check_model(model, cfg)
         with _mode(model, False), torch.no_grad():
-            return model(grd, sat, loc_offsets=loc_offsets)
+            return model(grd, sat, loc_offsets=loc_offsets, matching_impl=matching_impl)
+
+    return eval_step
+
+
+def make_eval_readout_step(cfg: cvm.CVMConfig, loc_offsets=None, matching_impl: str = "kernel"):
+    """The eval forward fused with the pose readout (JAX
+    ``train/loop.py::make_eval_readout_step``):
+    ``step(model, grd, sat, gt, gt_orientation) -> dict`` of [B] tensors
+    on the model's device (``ops.readout.pose_readout_from_outputs``: the
+    peak from the logits, so no heatmap is read)."""
+    from ..ops.readout import pose_readout_from_outputs
+
+    forward = make_eval_step(cfg, loc_offsets, matching_impl)
+
+    def eval_step(model: cvm.CVM, grd: torch.Tensor, sat: torch.Tensor, gt: torch.Tensor,
+                  gt_orientation: torch.Tensor) -> dict[str, torch.Tensor]:
+        out = forward(model, grd, sat)
+        return pose_readout_from_outputs(out, gt, gt_orientation)
 
     return eval_step

@@ -37,9 +37,10 @@ Phases, each printing one JSON line:
    device time of one step by part (forward, matching backward, rest of
    the backward, optimizer) and by kernel (``torch.profiler``).
    data:    the input pipeline on synthetic dataset roots written from
-   seeds (VIGOR: 48 2048x1024 JPEG panoramas and 640x640 PNG tiles over two
-   cities): ``VigorIndex`` -> ``VigorSampler`` -> ``Loader`` (8 threads) ->
-   ``device_prefetch`` -> ``vigor.device_batch`` on the card ->
+   seeds (``write_roots``; VIGOR's cross-area train split: 48 2048x1024 JPEG
+   panoramas and 640x640 PNG tiles over two cities): ``VigorIndex`` ->
+   ``VigorSampler`` -> ``Loader`` (8 threads) -> ``device_prefetch`` ->
+   ``vigor.device_batch`` on the card ->
    ``make_train_step`` for one epoch of six steps; the loader's batches/s
    alone, the fed step against a resident batch's, the card's idle share
    over each (``torch.profiler``), the host-to-device bytes per batch; one
@@ -47,6 +48,20 @@ Phases, each printing one JSON line:
    synchronous one; one KITTI batch through the alignment chain on the card
    against the CPU; one Oxford batch; the native decoder's batch path when
    it builds (else its build error).
+   cli:     the port's CLIs through ``main([...])`` on those roots, full
+   width, batch 8, float32: ``ccvpe_torch.train_VIGOR`` trains an epoch of
+   3 steps (validation included), checkpoints (bytes, save ms, the sidecar),
+   resumes a second epoch with the restored model and Adam state checked bit
+   for bit against the file (restore ms), writes the reference's results
+   files; its model, saved with ``CVMModel.save_torch``, evaluates at
+   ``--ori_noise 180`` (the shipped frozen orientations), ``36`` and ``-f 180
+   --ori_noise 0``; ``train_KITTI`` (``--device_augment``) and
+   ``train_OxfordRobotCar`` train 2 steps and evaluate (KITTI's test1/test2,
+   Oxford's three traversals).  Every eval runs through the kernels and
+   again through the plain versions: the same pixel for every sample, equal
+   distances, prob_at_gt within 1e-6, heading within 0.1 degree; launches
+   by layout, train and eval pairs/s, and the card's idle share over one
+   eval pass (``torch.profiler``).
 6. timing:  steady-state ``predict_batch`` pairs/s at batch 8 in float32,
    and the device time by kernel of three calls (``torch.profiler``).
 
@@ -64,11 +79,13 @@ import argparse
 import gc
 import json
 import math
+import os
 import re
 import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -947,188 +964,542 @@ def _check_batch(tag, got: dict, want: dict, tol: float) -> dict:
     return errs
 
 
-def phase_data(dev: dict) -> dict:
-    """The input pipeline of training on synthetic dataset roots written from
-    seeds: VIGOR (2048x1024 JPEG panoramas, 640x640 PNG tiles, 48 panoramas
-    over two cities, the cross-area split) through ``VigorIndex`` ->
+def phase_data(dev: dict, roots: dict) -> dict:
+    """The input pipeline of training on the synthetic dataset roots of
+    ``write_roots``: VIGOR (2048x1024 JPEG panoramas, 640x640 PNG tiles; the
+    cross-area split: 48 panoramas over two cities) through ``VigorIndex`` ->
     ``VigorSampler`` -> ``Loader`` (8 threads) -> ``device_prefetch`` ->
     ``vigor.device_batch`` -> ``make_train_step`` (full width, float32);
     one KITTI batch through the alignment chain on the card; one Oxford
     batch; the native decoder's batch path where it builds."""
-    import tempfile
-
     import PIL
 
     from ccvpe_torch.data import kitti as DK
     from ccvpe_torch.data import native_loader
     from ccvpe_torch.data import oxford as DO
     from ccvpe_torch.data import pipeline as DP
-    from ccvpe_torch.data import synthetic
     from ccvpe_torch.data import vigor as DV
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     info = {"phase": "data", "card": dev["nvidia_smi"], "batch": BATCH, "decode": "PIL",
-            "pil": PIL.__version__, "workers": 8, "tolerance": DATA_TOL}
-    with tempfile.TemporaryDirectory(prefix="ccvpe_smoke_data_") as tmp:
-        t0 = time.perf_counter()
-        root = synthetic.write_vigor_root(
-            f"{tmp}/vigor", cities=("NewYork", "Seattle"), panos_per_city=24,
-            sats_per_city=24, pano_hw=(1024, 2048), sat_hw=(640, 640), pano_ext=".jpg",
-            span=300.0, seed=0)
-        info["vigor_root_write_s"] = time.perf_counter() - t0
-        index = DV.VigorIndex.load(root, "crossarea", train=True)
-        sampler = DV.VigorSampler(index, pos_only=False)
-        order = DP.epoch_indices(len(index), shuffle=True, rng=np.random.default_rng(0))
+            "pil": PIL.__version__, "workers": 8, "tolerance": DATA_TOL,
+            "root_write_s": roots["write_s"]}
+    index = DV.VigorIndex.load(roots["vigor"], "crossarea", train=True)
+    sampler = DV.VigorSampler(index, pos_only=False)
+    order = DP.epoch_indices(len(index), shuffle=True, rng=np.random.default_rng(0))
 
-        def loader(**kw):
-            return DP.Loader(sampler, order, batch_size=BATCH, num_workers=8, **kw)
+    def loader(**kw):
+        return DP.Loader(sampler, order, batch_size=BATCH, num_workers=8, **kw)
 
-        # the loader alone: host decode, resize and collation, no device work
-        t0 = time.perf_counter()
-        hosts = list(loader(native_batch=False))
-        loader_s = time.perf_counter() - t0
-        if len(hosts) != FED_STEPS:
-            raise AssertionError(f"{len(hosts)} batches from {len(index)} panoramas")
-        info["loader_batches_per_s"] = len(hosts) / loader_s
-        info["loader_ms_per_batch"] = loader_s / len(hosts) * 1e3
-        info["h2d_bytes_per_batch"] = sum(v.nbytes for v in hosts[0].values()
-                                          if v.dtype.kind in "biuf")
+    # the loader alone: host decode, resize and collation, no device work
+    t0 = time.perf_counter()
+    hosts = list(loader(native_batch=False))
+    loader_s = time.perf_counter() - t0
+    if len(hosts) != FED_STEPS:
+        raise AssertionError(f"{len(hosts)} batches from {len(index)} panoramas")
+    info["loader_batches_per_s"] = len(hosts) / loader_s
+    info["loader_ms_per_batch"] = loader_s / len(hosts) * 1e3
+    info["h2d_bytes_per_batch"] = sum(v.nbytes for v in hosts[0].values()
+                                      if v.dtype.kind in "biuf")
 
-        # one thread's PIL decode and resize of one image of each kind
-        from ccvpe_torch.data.transforms import load_image
+    # one thread's PIL decode and resize of one image of each kind
+    from ccvpe_torch.data.transforms import load_image
 
-        def decode_ms(paths, hw):
-            times = []
-            for p in paths:
-                t0 = time.perf_counter()
-                load_image(str(p), hw)
-                times.append((time.perf_counter() - t0) * 1e3)
-            return statistics.median(times)
-
-        info["decode_ms"] = {"panorama_2048x1024_jpeg_to_320x640": decode_ms(
-                                 index.grd_paths[:8], DV.GRD_HW),
-                             "tile_640x640_png_to_512x512": decode_ms(
-                                 index.sat_paths[:8], DV.SAT_HW)}
-
-        # one batch on the card against the same batch on the CPU
-        fn = lambda raw: DV.device_batch(raw, train=True, device="cuda")
-        sync = fn(hosts[0])
-        info["device_batch_max_abs_err"] = _check_batch(
-            "VIGOR device batch", sync, DV.device_batch(hosts[0], train=True, device="cpu"),
-            DATA_TOL)
-
-        # the main path: steps fed from the root, the batch assembled on the
-        # side stream; then the same steps on one resident batch
-        state = _calibrated_state(cvm.VIGOR, seed=0)
-        step = TLOOP.make_train_step(cvm.VIGOR)
-        gen = torch.Generator(device="cuda").manual_seed(7)
-        prefetched = {}
-
-        def fed(epoch):
-            sampler.set_epoch(epoch)
-            for i, batch in enumerate(DP.device_prefetch(loader(native_batch=False), fn,
-                                                         device="cuda")):
-                if epoch == 0 and i == 0:
-                    prefetched.update(batch)
-                yield batch
-
-        resident = [sync] * FED_STEPS
-        fed_ms, resident_ms = [], []
-        for r in range(DATA_ROUNDS):      # in turns: fed, resident, fed, ...
-            if r == 0:
-                MC.reset_launch_counts()
-            run = _steps(state, step, fed(r), gen, profiled=False)
-            if r == 0:
-                launches = dict(MC.LAUNCHES)
-                if launches != {"matching_epilogue": 6 * FED_STEPS, "matching_scores": 0}:
-                    raise AssertionError(f"{FED_STEPS} fed steps launched {launches}")
-                info["launches"] = launches
-                info["prefetched_equals_synchronous"] = {
-                    k: torch.equal(prefetched[k], v) for k, v in sync.items()}
-                if not all(info["prefetched_equals_synchronous"].values()):
-                    raise AssertionError(f"prefetched batch differs: "
-                                         f"{info['prefetched_equals_synchronous']}")
-                prefetched.clear()
-                info["fed_losses"] = run["losses"]
-            fed_ms.append(run["step_ms"])
-            resident_ms.append(_steps(state, step, resident, gen, profiled=False)["step_ms"])
-        info["fed_step_ms"], info["resident_step_ms"] = fed_ms, resident_ms
-        info["fed_step_ms_median"] = statistics.median(fed_ms)
-        info["resident_step_ms_median"] = statistics.median(resident_ms)
-        # the card's idle share: kernel and copy time per step from a
-        # profiled epoch over the step time of the unprofiled runs (the
-        # profiler slows the host), and the share idle under the profiler
-        for name, batches, ms in (("fed", fed(DATA_ROUNDS), fed_ms),
-                                  ("resident", resident, resident_ms)):
-            prof = _steps(state, step, batches, gen, profiled=True)
-            prof["idle_share"] = 1 - prof["busy_ms_per_step"] / statistics.median(ms)
-            del prof["losses"]
-            info[f"{name}_profiled"] = prof
-        info["device_batch_ms"] = time_ms(lambda: fn(hosts[0]), reps=5, warmup=1)
-        sampler.set_epoch(0)
-        del state, sync, resident
-        gc.collect()
-        torch.cuda.empty_cache()
-
-        # the native decoder's batch path (opt-in, as in the JAX package)
-        if native_loader.available():
+    def decode_ms(paths, hw):
+        times = []
+        for p in paths:
             t0 = time.perf_counter()
-            native = list(loader(native_batch=True))
-            native_s = time.perf_counter() - t0
-            diff = {k: int(np.abs(a[k].astype(int) - b[k].astype(int)).max())
-                    for a, b in zip(native[:1], hosts[:1]) for k in ("grd", "sat")}
-            for a, b in zip(native, hosts):
-                for k in ("rotation", "angle", "row_offset", "col_offset", "city"):
-                    np.testing.assert_array_equal(a[k], b[k])
-                for k in ("grd", "sat"):
-                    if np.abs(a[k].astype(int) - b[k].astype(int)).mean() >= 1.0:
-                        raise AssertionError(f"native {k} differs from PIL's")
-            info["native"] = {"ran": True, "batches_per_s": len(native) / native_s,
-                              "max_abs_diff_vs_pil_first_batch": diff}
-        else:
-            info["native"] = {"ran": False, "build_error": native_loader.build_error()}
-        del hosts
+            load_image(str(p), hw)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
 
-        # KITTI: ground 1242x375, aerial 1280x1280, the alignment chain on the card
-        root = synthetic.write_kitti_root(f"{tmp}/kitti", n=BATCH, grd_hw=(375, 1242),
-                                          sat_hw=(1280, 1280), seed=1)
-        kidx = DK.KittiIndex.load(root, f"{root}/train_files.txt")
-        ks = DK.KittiSampler(kidx, device_augment=True)
-        (raw,) = list(DP.Loader(ks, np.arange(BATCH), batch_size=BATCH, num_workers=8))
-        kw = dict(train=True, mpp=ks.mpp)
-        card = DK.device_batch_device_aug(raw, device="cuda", **kw)
-        cpu = DK.device_batch_device_aug(raw, device="cpu", **kw)
-        sat = (card["sat"].cpu() - cpu["sat"]).abs()
-        # tests/test_data.py:481-504: normalised units within 0.05
-        close = (sat < 0.05).float().mean().item()
-        if not close > 0.95:
-            raise AssertionError(f"KITTI chain on the card agrees with the CPU at {close}")
-        info["kitti"] = {
-            "sat_raw": list(raw["sat_raw"].shape), "close_share": close,
-            "equal_share": (sat.amax(dim=-1) <= DATA_TOL).float().mean().item(),
-            "max_abs_err": _check_batch("KITTI device batch",
-                                        {k: v for k, v in card.items() if k != "sat"},
-                                        {k: v for k, v in cpu.items() if k != "sat"}, DATA_TOL),
-            # host arrays in (39 MB of raw tiles copied), device batch out
-            "device_batch_ms": time_ms(
-                lambda: DK.device_batch_device_aug(raw, device="cuda", **kw), reps=5, warmup=1)}
-        del card, cpu, raw
+    info["decode_ms"] = {"panorama_2048x1024_jpeg_to_320x640": decode_ms(
+                             index.grd_paths[:8], DV.GRD_HW),
+                         "tile_640x640_png_to_512x512": decode_ms(
+                             index.sat_paths[:8], DV.SAT_HW)}
 
-        # Oxford: a 4000x4000 aerial map, 1280x960 ground frames
-        root = synthetic.write_oxford_root(f"{tmp}/oxford/", n=BATCH, map_hw=(4000, 4000),
-                                           grd_hw=(960, 1280), seed=2)
-        oidx = DO.OxfordIndex.load(root, root + "satellite_map_new.png", "train")
-        (raw,) = list(DP.Loader(DO.OxfordSampler(oidx), np.arange(BATCH), batch_size=BATCH,
-                                num_workers=8))
-        card = DO.device_batch(raw, train=True, device="cuda")
-        info["oxford"] = {"grd": list(card["grd"].shape), "sat": list(card["sat"].shape),
-                          "max_abs_err": _check_batch(
-                              "Oxford device batch", card,
-                              DO.device_batch(raw, train=True, device="cpu"), DATA_TOL)}
+    # one batch on the card against the same batch on the CPU
+    fn = lambda raw: DV.device_batch(raw, train=True, device="cuda")
+    sync = fn(hosts[0])
+    info["device_batch_max_abs_err"] = _check_batch(
+        "VIGOR device batch", sync, DV.device_batch(hosts[0], train=True, device="cpu"),
+        DATA_TOL)
+
+    # the main path: steps fed from the root, the batch assembled on the
+    # side stream; then the same steps on one resident batch
+    state = _calibrated_state(cvm.VIGOR, seed=0)
+    step = TLOOP.make_train_step(cvm.VIGOR)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    prefetched = {}
+
+    def fed(epoch):
+        sampler.set_epoch(epoch)
+        for i, batch in enumerate(DP.device_prefetch(loader(native_batch=False), fn,
+                                                     device="cuda")):
+            if epoch == 0 and i == 0:
+                prefetched.update(batch)
+            yield batch
+
+    resident = [sync] * FED_STEPS
+    fed_ms, resident_ms = [], []
+    for r in range(DATA_ROUNDS):      # in turns: fed, resident, fed, ...
+        if r == 0:
+            MC.reset_launch_counts()
+        run = _steps(state, step, fed(r), gen, profiled=False)
+        if r == 0:
+            launches = dict(MC.LAUNCHES)
+            if launches != {"matching_epilogue": 6 * FED_STEPS, "matching_scores": 0}:
+                raise AssertionError(f"{FED_STEPS} fed steps launched {launches}")
+            info["launches"] = launches
+            info["prefetched_equals_synchronous"] = {
+                k: torch.equal(prefetched[k], v) for k, v in sync.items()}
+            if not all(info["prefetched_equals_synchronous"].values()):
+                raise AssertionError(f"prefetched batch differs: "
+                                     f"{info['prefetched_equals_synchronous']}")
+            prefetched.clear()
+            info["fed_losses"] = run["losses"]
+        fed_ms.append(run["step_ms"])
+        resident_ms.append(_steps(state, step, resident, gen, profiled=False)["step_ms"])
+    info["fed_step_ms"], info["resident_step_ms"] = fed_ms, resident_ms
+    info["fed_step_ms_median"] = statistics.median(fed_ms)
+    info["resident_step_ms_median"] = statistics.median(resident_ms)
+    # the card's idle share: kernel and copy time per step from a
+    # profiled epoch over the step time of the unprofiled runs (the
+    # profiler slows the host), and the share idle under the profiler
+    for name, batches, ms in (("fed", fed(DATA_ROUNDS), fed_ms),
+                              ("resident", resident, resident_ms)):
+        prof = _steps(state, step, batches, gen, profiled=True)
+        prof["idle_share"] = 1 - prof["busy_ms_per_step"] / statistics.median(ms)
+        del prof["losses"]
+        info[f"{name}_profiled"] = prof
+    info["device_batch_ms"] = time_ms(lambda: fn(hosts[0]), reps=5, warmup=1)
+    sampler.set_epoch(0)
+    del state, sync, resident
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the native decoder's batch path (opt-in, as in the JAX package)
+    if native_loader.available():
+        t0 = time.perf_counter()
+        native = list(loader(native_batch=True))
+        native_s = time.perf_counter() - t0
+        diff = {k: int(np.abs(a[k].astype(int) - b[k].astype(int)).max())
+                for a, b in zip(native[:1], hosts[:1]) for k in ("grd", "sat")}
+        for a, b in zip(native, hosts):
+            for k in ("rotation", "angle", "row_offset", "col_offset", "city"):
+                np.testing.assert_array_equal(a[k], b[k])
+            for k in ("grd", "sat"):
+                if np.abs(a[k].astype(int) - b[k].astype(int)).mean() >= 1.0:
+                    raise AssertionError(f"native {k} differs from PIL's")
+        info["native"] = {"ran": True, "batches_per_s": len(native) / native_s,
+                          "max_abs_diff_vs_pil_first_batch": diff}
+    else:
+        info["native"] = {"ran": False, "build_error": native_loader.build_error()}
+    del hosts
+
+    # KITTI: ground 1242x375, aerial 1280x1280, the alignment chain on the card
+    root = roots["kitti"]
+    kidx = DK.KittiIndex.load(root, f"{root}/train_files.txt")
+    ks = DK.KittiSampler(kidx, device_augment=True)
+    (raw,) = list(DP.Loader(ks, np.arange(BATCH), batch_size=BATCH, num_workers=8))
+    kw = dict(train=True, mpp=ks.mpp)
+    card = DK.device_batch_device_aug(raw, device="cuda", **kw)
+    cpu = DK.device_batch_device_aug(raw, device="cpu", **kw)
+    sat = (card["sat"].cpu() - cpu["sat"]).abs()
+    # tests/test_data.py:481-504: normalised units within 0.05
+    close = (sat < 0.05).float().mean().item()
+    if not close > 0.95:
+        raise AssertionError(f"KITTI chain on the card agrees with the CPU at {close}")
+    info["kitti"] = {
+        "sat_raw": list(raw["sat_raw"].shape), "close_share": close,
+        "equal_share": (sat.amax(dim=-1) <= DATA_TOL).float().mean().item(),
+        "max_abs_err": _check_batch("KITTI device batch",
+                                    {k: v for k, v in card.items() if k != "sat"},
+                                    {k: v for k, v in cpu.items() if k != "sat"}, DATA_TOL),
+        # host arrays in (39 MB of raw tiles copied), device batch out
+        "device_batch_ms": time_ms(
+            lambda: DK.device_batch_device_aug(raw, device="cuda", **kw), reps=5, warmup=1)}
+    del card, cpu, raw
+
+    # Oxford: a 4000x4000 aerial map, 1280x960 ground frames
+    root = roots["oxford"]
+    oidx = DO.OxfordIndex.load(root, root + "satellite_map_new.png", "train")
+    (raw,) = list(DP.Loader(DO.OxfordSampler(oidx), np.arange(BATCH), batch_size=BATCH,
+                            num_workers=8))
+    card = DO.device_batch(raw, train=True, device="cuda")
+    info["oxford"] = {"grd": list(card["grd"].shape), "sat": list(card["sat"].shape),
+                      "max_abs_err": _check_batch(
+                          "Oxford device batch", card,
+                          DO.device_batch(raw, train=True, device="cpu"), DATA_TOL)}
     emit(info)
     gc.collect()
     torch.cuda.empty_cache()
+    return info
+
+
+def write_roots(tmp: str) -> dict:
+    """Synthetic dataset roots from seeds in the datasets' layouts and
+    published raw sizes, read by the ``data`` and ``cli`` phases: VIGOR
+    (four cities of 24 2048x1024 JPEG panoramas and 24 640x640 PNG tiles;
+    the cross-area train split, New York and Seattle, is ``data``'s 48),
+    KITTI (16 frames of 375x1242 and their 1280x1280 tiles, both test
+    splits over all 16), Oxford (a 4000x4000 map, 24 frames of 1280x960,
+    three test traversals of 8)."""
+    from ccvpe_torch.data import synthetic
+
+    t0 = time.perf_counter()
+    roots = {
+        "vigor": synthetic.write_vigor_root(
+            f"{tmp}/vigor", panos_per_city=24, sats_per_city=24, pano_hw=(1024, 2048),
+            sat_hw=(640, 640), pano_ext=".jpg", span=300.0, seed=0),
+        "kitti": synthetic.write_kitti_root(f"{tmp}/kitti", n=2 * BATCH, n_test=2 * BATCH,
+                                            grd_hw=(375, 1242), sat_hw=(1280, 1280), seed=1),
+        "oxford": synthetic.write_oxford_root(f"{tmp}/oxford/", n=3 * BATCH, map_hw=(4000, 4000),
+                                              grd_hw=(960, 1280), test_frames=BATCH, seed=2)}
+    roots["write_s"] = time.perf_counter() - t0
+    return roots
+
+
+class _CliProbe:
+    """While active, records what the CLIs' harness does, without a host
+    sync in its loops: each trainer, each train epoch's pairs/s, each
+    step's loss (on the card), each eval pass's readout dicts (on the card),
+    wall time and pairs/s, each checkpoint save's and restore's ms; each
+    resume is checked bit for bit against the file it restored.  With
+    ``profile_eval`` set, an eval pass runs under ``torch.profiler`` and its
+    busy device ms are kept."""
+
+    def __init__(self):
+        self.trainers, self.epochs, self.losses, self.readouts = [], [], [], []
+        self.evals, self.saves_ms, self.restores_ms, self.resumes = [], [], [], []
+        self.profile_eval = False
+        self._undo = []
+
+    def _patch(self, owner, name, wrap):
+        orig = getattr(owner, name)
+        setattr(owner, name, wrap(orig))
+        self._undo.append((owner, name, orig))
+
+    def __enter__(self):
+        from ccvpe_torch.io.checkpoint import CheckpointManager
+        from ccvpe_torch.train import harness
+
+        probe = self
+
+        def train_step(make):
+            def made(*a, **kw):
+                step = make(*a, **kw)
+
+                def wrapped(state, batch, generator=None):
+                    parts = step(state, batch, generator)
+                    probe.losses.append(parts["loss"].detach())
+                    return parts
+                return wrapped
+            return made
+
+        def readout_step(make):
+            def made(*a, **kw):
+                step = make(*a, **kw)
+
+                def wrapped(*args):
+                    r = step(*args)
+                    probe.readouts.append(dict(r))
+                    return r
+                return wrapped
+            return made
+
+        def train_epoch(orig):
+            def wrapped(self, loader, fn, epoch):
+                probe.trainers.append(self)
+                pps = orig(self, loader, fn, epoch)
+                probe.epochs.append({"epoch": epoch, "pairs_per_s": pps})
+                return pps
+            return wrapped
+
+        def evaluate(orig):
+            def wrapped(self, *a, **kw):
+                from torch.profiler import ProfilerActivity, profile
+
+                prof = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                        if probe.profile_eval else None)
+                t0 = time.perf_counter()
+                if prof is not None:
+                    prof.__enter__()
+                summary = orig(self, *a, **kw)
+                torch.cuda.synchronize()
+                rec = {"wall_ms": (time.perf_counter() - t0) * 1e3,
+                       "pairs_per_sec": summary["pairs_per_sec"]}
+                if prof is not None:
+                    prof.__exit__(None, None, None)
+                    rec["busy_ms"], rec["span_ms"] = _busy_ms(prof.events())
+                probe.evals.append(rec)
+                return summary
+            return wrapped
+
+        def timed(records):
+            def wrap(orig):
+                def wrapped(*a, **kw):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = orig(*a, **kw)
+                    torch.cuda.synchronize()
+                    records.append((time.perf_counter() - t0) * 1e3)
+                    return out
+                return wrapped
+            return wrap
+
+        def resume(orig):
+            def wrapped(self):
+                ok = orig(self)
+                if ok:
+                    probe.resumes.append(_restored_equals_file(self))
+                return ok
+            return wrapped
+
+        self._patch(TLOOP, "make_train_step", train_step)
+        self._patch(TLOOP, "make_eval_readout_step", readout_step)
+        self._patch(harness.Trainer, "train_epoch", train_epoch)
+        self._patch(harness.Trainer, "evaluate", evaluate)
+        self._patch(harness.Trainer, "resume", resume)
+        self._patch(CheckpointManager, "save", timed(self.saves_ms))
+        self._patch(CheckpointManager, "restore", timed(self.restores_ms))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._undo):
+            setattr(owner, name, orig)
+        return False
+
+    def clear(self):
+        for records in (self.trainers, self.epochs, self.losses, self.readouts, self.evals):
+            del records[:]
+
+
+def _restored_equals_file(trainer) -> dict:
+    """The trainer's live state, just restored, against the checkpoint file
+    it came from: every model tensor and Adam tensor bit for bit, the step,
+    and the 4-d parameters still channels_last."""
+    ckpt = trainer.ckpt
+    saved = torch.load(ckpt.path(ckpt.latest_step()), map_location="cpu", weights_only=True)
+    state = trainer.state
+    n = 0
+    for k, v in state.model.state_dict().items():
+        if not torch.equal(v.cpu(), saved["model"][k]):
+            raise AssertionError(f"resume: {k} differs from the checkpoint")
+        n += 1
+    live = state.optimizer.state_dict()["state"]
+    if live.keys() != saved["optimizer"]["state"].keys() or not live:
+        raise AssertionError("resume: Adam's state is not the checkpoint's")
+    for i, s in live.items():
+        for k, v in s.items():
+            if not torch.equal(v.cpu(), saved["optimizer"]["state"][i][k]):
+                raise AssertionError(f"resume: Adam {k} of parameter {i} differs")
+            n += 1
+    if state.step != saved["step"]:
+        raise AssertionError(f"resume: step {state.step} vs {saved['step']}")
+    if not all(p.is_contiguous(memory_format=torch.channels_last)
+               for p in state.model.parameters() if p.dim() == 4):
+        raise AssertionError("resume: parameters left channels_last")
+    return {"step": state.step, "tensors_equal": n}
+
+
+# the VIGOR eval settings of the ``cli`` phase and the kernel launches
+# (K1, K2) of one forward in each: the CLI takes loc_offsets
+# range(-n, n + 1) for ori_noise 18n (21 offsets at 180), so every setting
+# adds the full-bin stack at the bottleneck (K2); at FoV 180 every scale
+# takes K2's masked window
+CLI_VIGOR_EVAL = {"ori_noise_180": (["--ori_noise", "180"], (6, 1)),
+                  "ori_noise_36": (["--ori_noise", "36"], (6, 1)),
+                  "fov_180": (["-f", "180", "--ori_noise", "0"], (0, 7))}
+CLI_EVAL_BATCHES = 4
+CLI_PROB_TOL = 1e-6
+
+
+def _launches() -> dict:
+    return {"K1": MC.LAUNCHES["matching_epilogue"], "K2": MC.LAUNCHES["matching_scores"],
+            "by_layout": {f"{k} {lay}": n for (k, lay), n in MC.LAUNCHES_BY_LAYOUT.items() if n}}
+
+
+def _readouts(probe) -> dict:
+    return {k: torch.cat([r[k] for r in probe.readouts]).cpu()
+            for k in ("pred_row", "pred_col", "prob_at_gt", "cos_pred", "sin_pred")}
+
+
+def _kernel_vs_plain(tag, runs: dict) -> dict:
+    """The ``kernel`` and ``plain`` eval runs of one setting: the same
+    predicted row and col for every sample, equal distance metrics,
+    prob_at_gt within CLI_PROB_TOL, heading within HEADING_TOL_DEG."""
+    from ccvpe_torch.train.metrics import angle_from_cos_sin
+
+    k, p = runs["kernel"]["readout"], runs["plain"]["readout"]
+    if k["pred_row"].numel() == 0 or not (torch.equal(k["pred_row"], p["pred_row"])
+                                          and torch.equal(k["pred_col"], p["pred_col"])):
+        raise AssertionError(f"{tag}: kernel and plain predict other pixels")
+    for split, sk in runs["kernel"]["summary"].items():
+        sp = runs["plain"]["summary"][split]
+        for key in ("mean_distance_m", "median_distance_m"):
+            if sk[key] != sp[key] or not math.isfinite(sk[key]):
+                raise AssertionError(f"{tag} {split}: {key} {sk[key]} vs {sp[key]}")
+    prob = (k["prob_at_gt"] - p["prob_at_gt"]).abs().max().item()
+    ak, vk = angle_from_cos_sin(k["cos_pred"].numpy(), k["sin_pred"].numpy())
+    ap, _ = angle_from_cos_sin(p["cos_pred"].numpy(), p["sin_pred"].numpy())
+    diff = np.abs((ak - ap + 180) % 360 - 180)[vk]
+    heading = float(diff.max()) if diff.size else 0.0
+    if not (prob <= CLI_PROB_TOL and heading <= HEADING_TOL_DEG):
+        raise AssertionError(f"{tag}: prob_at_gt {prob}, heading {heading} deg")
+    return {"samples": int(k["pred_row"].numel()), "prob_at_gt_max_abs_err": prob,
+            "heading_err_deg": heading}
+
+
+def _eval_both(tag, main, argv, probe, eval_keys) -> dict:
+    """One eval CLI run through the kernels, then one through the plain
+    versions, held to each other; launches of each."""
+    runs = {}
+    for impl in ("kernel", "plain"):
+        probe.clear()
+        MC.reset_launch_counts()
+        out = main(argv + ["--matching_impl", impl])
+        summaries = {k: out[k] for k in eval_keys} if eval_keys else {"all": out}
+        runs[impl] = {"summary": summaries, "launches": _launches(),
+                      "readout": _readouts(probe),
+                      "pairs_per_s": [e["pairs_per_sec"] for e in probe.evals],
+                      "wall_ms": [e["wall_ms"] for e in probe.evals]}
+    if runs["plain"]["launches"]["K1"] or runs["plain"]["launches"]["K2"]:
+        raise AssertionError(f"{tag}: the plain run launched {runs['plain']['launches']}")
+    res = {"check": _kernel_vs_plain(tag, runs), "launches": runs["kernel"]["launches"],
+           "eval_pairs_per_s": runs["kernel"]["pairs_per_s"],
+           "eval_wall_ms": runs["kernel"]["wall_ms"],
+           "plain_eval_pairs_per_s": runs["plain"]["pairs_per_s"],
+           "median_distance_m": {s: v["median_distance_m"]
+                                 for s, v in runs["kernel"]["summary"].items()}}
+    return res
+
+
+def _train_cli(tag, main, argv, probe, want_steps: int) -> dict:
+    """One train CLI run: finite losses, the steps taken, each epoch's
+    train pairs/s, the launches and the peak memory allocated."""
+    probe.clear()
+    MC.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    main(argv)
+    losses = torch.stack(probe.losses).tolist()
+    if len(losses) != want_steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{tag}: losses {losses}, want {want_steps} finite")
+    return {"losses": losses, "epochs": list(probe.epochs), "launches": _launches(),
+            "val_pairs_per_s": [e["pairs_per_sec"] for e in probe.evals],
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _save_trained(probe, path: str) -> None:
+    """The last trainer's model as a reference-format .pt, then free it."""
+    trainer = probe.trainers[-1]
+    api.CVMModel(trainer.model_cfg, trainer.state.model, trainer.device).save_torch(path)
+    probe.clear()
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_cli(dev: dict, roots: dict) -> dict:
+    """The port's train and eval CLIs (``ccvpe_torch.train_VIGOR``,
+    ``train_KITTI``, ``train_OxfordRobotCar``) through ``main([...])`` on the
+    roots of ``write_roots``, full width, batch 8, float32, TF32 off:
+    VIGOR trains an epoch of 3 steps, checkpoints, resumes bit for bit for a
+    second, and its model evaluates in three settings; KITTI (with
+    ``--device_augment``) and Oxford train 2 steps and evaluate; every eval
+    runs through the kernels and through the plain versions, held to each
+    other per sample."""
+    from ccvpe_torch import train_KITTI, train_OxfordRobotCar, train_VIGOR
+    from ccvpe_torch.io.checkpoint import CheckpointManager
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    info = {"phase": "cli", "card": dev["nvidia_smi"], "batch": BATCH, "dtype": "float32",
+            "prob_tolerance": CLI_PROB_TOL, "heading_tolerance_deg": HEADING_TOL_DEG}
+    t_phase = time.perf_counter()
+    common = ["-b", str(BATCH), "--num_workers", "8"]
+    with tempfile.TemporaryDirectory(prefix="ccvpe_smoke_cli_") as tmp, _CliProbe() as probe:
+        # 1. VIGOR: one epoch, a checkpoint, then a resumed second epoch
+        res, ck = f"{tmp}/vigor_res", f"{tmp}/vigor_ckpt"
+        argv = common + ["--dataset_root", roots["vigor"], "--steps_per_epoch", "3",
+                         "--checkpoint_dir", ck, "--results_dir", res, "--keep_checkpoints", "1"]
+        first = _train_cli("VIGOR train", train_VIGOR.main, argv + ["--epochs", "1"], probe, 3)
+        manager = CheckpointManager(ck)
+        meta = manager.meta(3)
+        if manager.all_steps() != [3] or meta != {"step": 3, "epoch": 0, "completed": True}:
+            raise AssertionError(f"VIGOR checkpoint: steps {manager.all_steps()}, meta {meta}")
+        ckpt_bytes = os.path.getsize(manager.path(3))
+        resumed = _train_cli("VIGOR resume", train_VIGOR.main,
+                             argv + ["--epochs", "2", "--resume"], probe, 3)
+        if [e["epoch"] for e in resumed["epochs"]] != [1] or len(probe.resumes) != 1:
+            raise AssertionError(f"resume ran epochs {resumed['epochs']}")
+        label = "samearea_HFoV360"
+        for stem in ("mean_distance_error", "median_distance_error", "mean_orientation_error",
+                     "median_orientation_error"):
+            lines = Path(f"{res}/{label}_{stem}.txt").read_text().splitlines()
+            if lines[0::2] != [f"{e}_{label}_{stem}:" for e in (0, 1)] or not all(
+                    math.isfinite(float(v)) for v in lines[1::2]):
+                raise AssertionError(f"results file {stem}: {lines}")
+        summary_lines = Path(f"{res}/{label}_summary.json").read_text().splitlines()
+        if [json.loads(x)["epoch"] for x in summary_lines] != [0, 1]:
+            raise AssertionError(f"summary.json: {summary_lines}")
+        info["vigor_train"] = {
+            "first": first, "resumed": resumed, "resume_check": probe.resumes[0],
+            "checkpoint_bytes": ckpt_bytes, "save_ms": list(probe.saves_ms),
+            "restore_ms": list(probe.restores_ms), "results_lines": summary_lines}
+        pt = f"{tmp}/vigor.pt"
+        _save_trained(probe, pt)
+
+        # 2. VIGOR eval of that model, kernel against plain in each setting
+        info["vigor_eval"] = {}
+        for name, (flags, (k1, k2)) in CLI_VIGOR_EVAL.items():
+            argv = common + ["--dataset_root", roots["vigor"], "--training", "False",
+                             "--steps_per_epoch", str(CLI_EVAL_BATCHES), "--test_model_path", pt,
+                             "--results_dir", f"{tmp}/eval_res", *flags]
+            r = _eval_both(f"VIGOR eval {name}", train_VIGOR.main, argv, probe, None)
+            want = {"K1": k1 * CLI_EVAL_BATCHES, "K2": k2 * CLI_EVAL_BATCHES}
+            if {k: r["launches"][k] for k in want} != want:
+                raise AssertionError(f"VIGOR eval {name}: launches {r['launches']}, want {want}")
+            info["vigor_eval"][name] = r
+        # the card's idle share over one eval pass: busy device ms under the
+        # profiler over the same setting's unprofiled wall time
+        probe.clear()
+        probe.profile_eval = True
+        train_VIGOR.main(common + ["--dataset_root", roots["vigor"], "--training", "False",
+                                   "--steps_per_epoch", str(CLI_EVAL_BATCHES),
+                                   "--test_model_path", pt, "--matching_impl", "kernel",
+                                   "--results_dir", f"{tmp}/eval_res"])
+        probe.profile_eval = False
+        prof = probe.evals[-1]
+        wall_ms = info["vigor_eval"]["ori_noise_180"]["eval_wall_ms"][0]
+        info["vigor_eval_idle"] = {"busy_ms": prof["busy_ms"], "profiled_wall_ms": prof["wall_ms"],
+                                   "unprofiled_wall_ms": wall_ms,
+                                   "idle_share": 1 - prof["busy_ms"] / wall_ms,
+                                   "idle_share_profiled": 1 - prof["busy_ms"] / prof["wall_ms"]}
+        probe.clear()
+
+        # 3. KITTI and Oxford: two train steps, then kernel against plain eval
+        for preset, main, root_flags, eval_keys in (
+                ("KITTI", train_KITTI.main, ["--dataset_root", roots["kitti"]],
+                 ("test1", "test2")),
+                ("OxfordRobotCar", train_OxfordRobotCar.main,
+                 ["--grd_image_root", roots["oxford"]], ("test1", "test2", "test3"))):
+            extra = ["--device_augment"] if preset == "KITTI" else []
+            trained = _train_cli(f"{preset} train", main, common + root_flags + [
+                "--epochs", "1", "--steps_per_epoch", "2", "--keep_checkpoints", "1",
+                "--checkpoint_dir", f"{tmp}/{preset}_ckpt", "--results_dir", f"{tmp}/{preset}_res",
+                *extra], probe, 2)
+            pt = f"{tmp}/{preset}.pt"
+            _save_trained(probe, pt)
+            evaluated = _eval_both(f"{preset} eval", main, common + root_flags + [
+                "--training", "False", "--steps_per_epoch", "2", "--test_model_path", pt,
+                "--results_dir", f"{tmp}/{preset}_eval"], probe, eval_keys)
+            info[preset] = {"train": trained, "eval": evaluated}
+            gc.collect()
+            torch.cuda.empty_cache()
+    info["seconds"] = time.perf_counter() - t_phase
+    emit(info)
     return info
 
 
@@ -1186,6 +1557,79 @@ def _profile(model, grd, sat, out: Path | None) -> dict:
                     for k, ms, c in rows[:15]]}
 
 
+def kernels_line(kern: dict, model: dict, presets: dict, train: dict, data: dict, cli: dict,
+                 dev: dict) -> list[dict]:
+    """The rows of the ``kernels`` line: each kernel's times at its shapes
+    (phase ``kernels``, ``model_presets``) and its launches on each main
+    path, each counted from 0 just before that path ran."""
+    summary = kern["summary"]
+    per = model["launches_per_setting"]   # (K1, K2) per setting
+    by_path = {"predict_batch": model["launches"]["matching_epilogue"],
+               "train_step": train["launches"]["matching_epilogue"],
+               "train_step_fed": data["launches"]["matching_epilogue"]}
+    # the CLIs: VIGOR's train runs (steps and validation) and eval settings,
+    # KITTI's and Oxford's train and eval runs (kernel side)
+    vigor_eval = cli["vigor_eval"]
+    cli_k = {"cli_train_VIGOR": {k: cli["vigor_train"]["first"]["launches"][k]
+                                 + cli["vigor_train"]["resumed"]["launches"][k]
+                                 for k in ("K1", "K2")},
+             "cli_eval_VIGOR_prior": {k: sum(vigor_eval[s]["launches"][k] for s in
+                                             ("ori_noise_180", "ori_noise_36"))
+                                      for k in ("K1", "K2")},
+             "cli_eval_VIGOR_fov180": vigor_eval["fov_180"]["launches"]}
+    for preset in ("KITTI", "OxfordRobotCar"):
+        cli_k[f"cli_{preset}"] = {k: cli[preset]["train"]["launches"][k]
+                                  + cli[preset]["eval"]["launches"][k] for k in ("K1", "K2")}
+    by_path.update(cli_train_VIGOR=cli_k["cli_train_VIGOR"]["K1"],
+                   cli_eval_VIGOR=cli_k["cli_eval_VIGOR_prior"]["K1"]
+                   + cli_k["cli_eval_VIGOR_fov180"]["K1"])
+    summary[0]["launches"] = sum(by_path.values())
+    summary[0]["launches_by_path"] = by_path
+    summary[0]["backward"] = "autograd through the plain version"
+    summary[0]["backward_ms_per_train_step"] = train["profile"]["device_ms"]["matching_backward"]
+    k2_prior = per[json.dumps(dict(ori_noise=36.0))][1]
+    k2_fov = per[json.dumps(dict(fov=180.0))][1]
+    if k2_prior + k2_fov != model["launches"]["matching_scores"]:
+        raise AssertionError(f"K2 launches {model['launches']} are not the prior's and "
+                             f"fov=180's ({k2_prior}, {k2_fov})")
+    if cli_k["cli_train_VIGOR"]["K2"]:
+        raise AssertionError(f"VIGOR training launched K2: {cli_k['cli_train_VIGOR']}")
+    # K2 in the CLI's prior settings (ori_noise 180 and 36): the full-bin
+    # bottleneck stack; at fov=180 (ori_noise 0): the masked window at the
+    # six scales and the full-bin stack, masked too
+    summary[1]["launches_by_path"] = {"predict_batch": k2_prior,
+                                      "cli_eval_VIGOR": cli_k["cli_eval_VIGOR_prior"]["K2"]}
+    summary[2]["launches_by_path"] = {"predict_batch": k2_fov,
+                                      "cli_eval_VIGOR": cli_k["cli_eval_VIGOR_fov180"]["K2"]}
+    for row in summary[1:3]:
+        row["launches"] = sum(row["launches_by_path"].values())
+    # the KITTI and Oxford forwards: each kernel's row sums its times at the
+    # preset's shapes (one all-bin forward) and counts its launches over the
+    # preset's settings; the error is the model's stacks, kernel vs plain
+    for preset, p in presets["presets"].items():
+        stacks = max(r["max_abs_err"]["stacks"] for r in p["results"])
+        for kernel, name, replaces in (("K1", "matching_epilogue", K1_REPLACES),
+                                       ("K2", "matching_scores", K2_REPLACES)):
+            rows = [r for r in p["times"] if r["kernel"] == kernel]
+            if not rows:
+                continue
+            row = _summary(f"{name} ({kernel}), {preset}", rows, kernel, replaces,
+                           kern["max_err"], dev)
+            row["launches_by_path"] = {
+                "predict_batch": sum(r["launches"][name] for r in p["results"]),
+                f"cli_{preset}": cli_k[f"cli_{preset}"][kernel]}
+            row["launches"] = sum(row["launches_by_path"].values())
+            row["launches_by_setting"] = {json.dumps(r["setting"]): r["launches"][name]
+                                          for r in p["results"]}
+            row["max_abs_err"] = stacks
+            summary.append(row)
+    idle = [(row["name"], path) for row in summary
+            for path, n in row["launches_by_path"].items() if not n]
+    if idle:
+        raise AssertionError(f"kernels not launched on their main path: {idle}")
+    return summary
+
+
 def _deadline(signum, frame):
     raise TimeoutError(f"chip_smoke.py passed its {DEADLINE_S} s deadline")
 
@@ -1210,44 +1654,17 @@ def main(argv=None) -> int:
     model, net = phase_model(dev)
     presets = phase_model_presets(dev)
     train = phase_train(dev, args.out)
-    data = phase_data(dev)
+    with tempfile.TemporaryDirectory(prefix="ccvpe_smoke_roots_") as tmp:
+        roots = write_roots(tmp)
+        data = phase_data(dev, roots)
+        cli = phase_cli(dev, roots)
     timing = phase_timing(dev, net, args.out)
-    summary = kern["summary"]
-    per = model["launches_per_setting"]   # (K1, K2) per setting
-    by_path = {"predict_batch": model["launches"]["matching_epilogue"],
-               "train_step": train["launches"]["matching_epilogue"],
-               "train_step_fed": data["launches"]["matching_epilogue"]}
-    summary[0]["launches"] = sum(by_path.values())
-    summary[0]["launches_by_path"] = by_path
-    summary[0]["backward"] = "autograd through the plain version"
-    summary[0]["backward_ms_per_train_step"] = train["profile"]["device_ms"]["matching_backward"]
-    summary[1]["launches"] = per[json.dumps(dict(ori_noise=36.0))][1]
-    summary[2]["launches"] = per[json.dumps(dict(fov=180.0))][1]
-    if summary[1]["launches"] + summary[2]["launches"] != model["launches"]["matching_scores"]:
-        raise AssertionError(f"K2 launches {model['launches']} are not the prior's and "
-                             f"fov=180's ({summary[1]['launches']}, {summary[2]['launches']})")
-    # the KITTI and Oxford forwards: each kernel's row sums its times at the
-    # preset's shapes (one all-bin forward) and counts its launches over the
-    # preset's settings; the error is the model's stacks, kernel vs plain
-    for preset, p in presets["presets"].items():
-        stacks = max(r["max_abs_err"]["stacks"] for r in p["results"])
-        for kernel, name, replaces in (("K1", "matching_epilogue", K1_REPLACES),
-                                       ("K2", "matching_scores", K2_REPLACES)):
-            rows = [r for r in p["times"] if r["kernel"] == kernel]
-            if not rows:
-                continue
-            row = _summary(f"{name} ({kernel}), {preset}", rows, kernel, replaces,
-                           kern["max_err"], dev)
-            row["launches"] = sum(r["launches"][name] for r in p["results"])
-            row["launches_by_setting"] = {json.dumps(r["setting"]): r["launches"][name]
-                                          for r in p["results"]}
-            row["max_abs_err"] = stacks
-            summary.append(row)
+    summary = kernels_line(kern, model, presets, train, data, cli, dev)
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(json.dumps(
             {"device": dev, "kernels": {k: v for k, v in kern.items() if k != "max_err"},
              "model": model, "model_presets": presets, "train": train, "data": data,
-             "timing": timing,
+             "cli": cli, "timing": timing,
              "seconds": time.perf_counter() - t0}, indent=1))
     emit({"kernels": summary})
     print(dev["nvidia_smi"], flush=True)

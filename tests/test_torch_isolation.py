@@ -82,3 +82,24 @@ def test_native_loader_lives_outside_the_jax_package():
     for path in (native_loader.SOURCE, native_loader.BUILD_DIR, native_loader.library_path()):
         assert jax_tree not in path.resolve().parents
     assert native_loader.library_path().parent == native_loader.BUILD_DIR
+
+
+@pytest.mark.parametrize("module", ["ccvpe_torch.train_VIGOR", "ccvpe_torch.train_KITTI",
+                                    "ccvpe_torch.train_OxfordRobotCar", "ccvpe_torch.eval"])
+def test_python_m_entry_points_load_no_jax(module):
+    """``python -m <module> --help`` as a user runs it: it prints its flags,
+    and no jax module is loaded on the way."""
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = [{module!r}, '--help']\n"
+        "try:\n"
+        f"    runpy.run_module({module!r}, run_name='__main__', alter_sys=True)\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    flag = "--configs" if module.endswith("eval") else "--matching_impl"
+    assert "usage:" in proc.stdout and flag in proc.stdout

@@ -1,6 +1,8 @@
-"""Shared set-up of the data-layer parity tests (``tests/test_torch_data_*.py``):
-seeded synthetic dataset roots written once per test module by
-``ccvpe_torch.data.synthetic`` (which the JAX package reads as well), and
+"""Shared set-up of the data-layer and CLI parity tests
+(``tests/test_torch_data_*.py``, ``tests/test_torch_cli*.py``,
+``tests/test_torch_harness.py``): seeded synthetic dataset roots written
+once per test module by ``ccvpe_torch.data.synthetic`` (which the JAX
+package reads as well), a seeded NANO ``.pt`` both packages load, and
 comparisons of host samples and device batches.
 
 Tolerances of a device batch against the JAX package's, on the CPU:
@@ -11,6 +13,7 @@ images, bin weights and orientation fields atol 1e-6; the GT heatmap atol
 
 import numpy as np
 import pytest
+import torch
 
 from ccvpe_torch.data import synthetic
 
@@ -31,6 +34,23 @@ def kitti_root(tmp_path_factory):
 @pytest.fixture(scope="module")
 def oxford_root(tmp_path_factory):
     return synthetic.write_oxford_root(str(tmp_path_factory.mktemp("oxford")) + "/")
+
+
+def write_nano_pt(path: str, seed: int) -> str:
+    """A seeded NANO model of the port as a reference-format ``.pt``, its
+    BatchNorm statistics calibrated on one seeded batch (with identity
+    statistics the random backbones flatten the heatmap)."""
+    from ccvpe_torch import api
+    from ccvpe_torch.data.transforms import normalize_images
+    from ccvpe_torch.nn.layers import calibrate_batch_norm_
+
+    model = api.load_model(preset="NANO", seed=seed, device="cpu")
+    rng = np.random.default_rng(seed + 1)
+    g, s = (normalize_images(torch.from_numpy(rng.integers(0, 256, (2, *hw, 3), np.uint8)))
+            for hw in (model.cfg.grd_hw, model.cfg.sat_hw))
+    calibrate_batch_norm_(model.net, lambda: model.net(g, s))
+    model.save_torch(path)
+    return path
 
 
 def assert_samples_equal(got: dict, want: dict) -> None:

@@ -19,6 +19,15 @@ from ccvpe_torch.train import loop as TLOOP
 
 RTOL = 1e-5
 B1 = 0.9
+# the configurations a test may name: the presets, plus what ``register`` adds
+CONFIGS = dict(TC.PRESETS)
+JAX_CONFIGS = dict(JC.PRESETS)
+
+
+def register(name, torch_cfg, jax_cfg):
+    """Make a configuration built in a test (a port and a JAX
+    ``CVMConfig`` of the same fields) nameable by ``setup``/``run_both``."""
+    CONFIGS[name], JAX_CONFIGS[name] = torch_cfg, jax_cfg
 
 
 def make_batch(cfg, b, seed):
@@ -37,7 +46,7 @@ def make_batch(cfg, b, seed):
 def setup(cfg_name, b, seed=0):
     """(port TrainState, JAX TrainState, batch as numpy) from one seeded
     init with calibrated BN statistics."""
-    cfg = TC.PRESETS[cfg_name]
+    cfg = CONFIGS[cfg_name]
     state = TLOOP.create_train_state(cfg, seed=seed, device="cpu")
     batch = make_batch(cfg, b, seed + 1)
     calib = make_batch(cfg, 2, seed + 2)
@@ -55,7 +64,7 @@ def setup(cfg_name, b, seed=0):
 
 @functools.cache
 def jax_step(cfg_name, matching_impl, grad_accum=1):
-    return jax.jit(JLOOP.make_train_step(JC.PRESETS[cfg_name], JLOOP.make_optimizer(1e-4),
+    return jax.jit(JLOOP.make_train_step(JAX_CONFIGS[cfg_name], JLOOP.make_optimizer(1e-4),
                                          matching_impl=matching_impl, grad_accum=grad_accum))
 
 
@@ -93,7 +102,7 @@ def run_both(cfg_name, b, matching_impl, grad_accum=1, jax_rng=None):
     state, jstate, batch = setup(cfg_name, b)
     before = {k: v.clone() for k, v in state.model.named_buffers()}
     jnew, jparts = jax_step(cfg_name, matching_impl, grad_accum)(jstate, batch, jax_rng)
-    step = TLOOP.make_train_step(TC.PRESETS[cfg_name], grad_accum=grad_accum)
+    step = TLOOP.make_train_step(CONFIGS[cfg_name], grad_accum=grad_accum)
     parts = step(state, torch_batch(batch))
     assert state.step == 1 and state.model.training
     check_step(state, parts, jnew, jparts, before)
