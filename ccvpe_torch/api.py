@@ -2,6 +2,7 @@
 
     from ccvpe_torch import api
     model = api.load_model("model.pt", preset="VIGOR")      # on cuda
+    model = api.load_model("checkpoints/", preset="VIGOR")  # a trainer's newest step
     pose = model.predict(grd_image, sat_image, ori_noise=36.0)
     pose.row, pose.col, pose.orientation_deg, pose.probability
 
@@ -12,6 +13,7 @@ the pose readout run on the model's device under ``torch.inference_mode``.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -121,10 +123,18 @@ def _prepare(img: np.ndarray, hw) -> np.ndarray:
 
 
 def load_model(checkpoint_path: str | None = None, preset: str = "VIGOR",
-               seed: int = 0, device: str | torch.device | None = None) -> CVMModel:
-    """A model from a reference-format ``.pt`` checkpoint, or seeded random
-    weights (``checkpoint_path=None``), on ``device`` (default ``cuda``;
-    raises when CUDA is absent and no device was asked for)."""
+               seed: int = 0, device: str | torch.device | None = None,
+               matching_impl: str = "kernel") -> CVMModel:
+    """A model from a reference-format ``.pt`` checkpoint, from the newest
+    step of a training checkpoint directory (``io.checkpoint``; float32 or
+    bfloat16 parameters), or seeded random weights
+    (``checkpoint_path=None``), on ``device`` (default ``cuda``; raises when
+    CUDA is absent and no device was asked for).
+
+    The model runs in float32: bfloat16 parameters are read into float32
+    exactly, which is what the JAX model does when it casts them to its
+    float32 inputs at each op.  ``matching_impl``: 'kernel' (the CUDA
+    kernels on a CUDA device) or 'plain'."""
     device = resolve_device(device)
     cfg = cvm.PRESETS[preset]
     net = cvm.CVM(cfg)
@@ -134,7 +144,15 @@ def load_model(checkpoint_path: str | None = None, preset: str = "VIGOR",
         from .io.from_jax import load_state_dict
 
         net.load_state_dict(load_state_dict(checkpoint_path), strict=True)
+    elif os.path.isdir(checkpoint_path):
+        from .io.checkpoint import CheckpointManager
+        from .io.from_jax import check_shapes
+
+        weights = CheckpointManager(checkpoint_path).load_weights()
+        check_shapes(net.state_dict(), weights, checkpoint_path, cfg.name)
+        net.load_state_dict(weights, strict=True)
     else:
-        raise ValueError(f"expected a .pt checkpoint, got {checkpoint_path!r}")
+        raise ValueError(f"expected a .pt checkpoint or a checkpoint directory, "
+                         f"got {checkpoint_path!r}")
     net = net.eval().to(device=device, memory_format=torch.channels_last)
-    return CVMModel(cfg, net, device)
+    return CVMModel(cfg, net, device, matching_impl=matching_impl)

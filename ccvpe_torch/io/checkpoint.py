@@ -6,6 +6,12 @@ optimizer (``train_VIGOR.py:159-163``).  Here the whole train state -- the
 model's parameters and BatchNorm buffers, Adam's state and the step --
 goes through ``torch.save`` into one file per step, ``ckpt_<step>.pt``,
 so training can checkpoint every N steps and resume after preemption.
+With bfloat16-resident parameters (``--bf16_params``) the file holds them
+in bfloat16 beside the BN statistics in float32, and the optimizer's state
+holds the float32 master next to both Adam moments; a restore is bit for
+bit in either case, and refuses a file whose parameter dtypes are not the
+live model's.  ``load_weights`` reads the model of the newest file for
+inference (``api.load_model`` of a checkpoint directory).
 
 Every file is written to a temporary name and renamed into place, so a
 save cut short never shows as a step.  A sidecar ``latest_meta.json``
@@ -123,10 +129,27 @@ class CheckpointManager:
         # Adam moves each moment to its parameter's device (keeping the
         # saved strides) and keeps ``step`` on the host, where it lives
         saved = torch.load(self.path(step), map_location="cpu", weights_only=True)
+        live = state.model.state_dict()
+        differ = sorted(k for k, v in saved["model"].items()
+                        if k in live and v.dtype != live[k].dtype)
+        if differ:
+            raise ValueError(
+                f"checkpoint {self.path(step)} holds {differ[0]} in "
+                f"{saved['model'][differ[0]].dtype}, the model in {live[differ[0]].dtype} "
+                f"({len(differ)} tensors differ): resume with the parameter dtype it "
+                "was trained with (--bf16_params)")
         state.model.load_state_dict(saved["model"], strict=True)
         state.optimizer.load_state_dict(saved["optimizer"])
         state.step = int(saved["step"])
         return state
+
+    def load_weights(self, step: int | None = None) -> dict:
+        """The model's state_dict saved at ``step`` (default: the latest), on
+        the host, in the dtypes it was saved in."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {self._dir}")
+        return torch.load(self.path(step), map_location="cpu", weights_only=True)["model"]
 
     def close(self) -> None:
         """Nothing is in flight: saves are synchronous."""

@@ -18,6 +18,11 @@ no ``_fc``, which the port trains without a gradient).
 
 The trees are nested dicts and lists of array-likes (numpy arrays, or
 anything ``np.asarray`` takes).
+
+``import_b0`` puts a raw EfficientNet-B0 state_dict (the lukemelas release
+file) into both encoders of a CVM, the counterpart of
+``ccvpe_tpu/io/torch_import.py::import_b0`` in ``create_train_state``;
+``check_shapes`` names the keys of a file that do not fit a model.
 """
 
 from __future__ import annotations
@@ -123,6 +128,39 @@ def _cvm_tensors(params, bn_state) -> dict[str, torch.Tensor]:
             for k, v in out.items()}
 
 
+def check_shapes(want: dict, have: dict, spec, preset: str) -> None:
+    """Raise ``ValueError`` naming the first keys whose shapes differ
+    between a model's state_dict (``want``) and a file's (``have``), a key
+    missing on one side included (JAX ``train/loop.py::_check_encoder_shapes``)."""
+    def shape(d, k):
+        return tuple(d[k].shape) if k in d else None
+
+    bad = [f"{k}: model wants {shape(want, k)} but file has {shape(have, k)}"
+           for k in sorted(set(want) | set(have)) if shape(want, k) != shape(have, k)]
+    if bad:
+        raise ValueError(
+            f"pretrained weights {spec!r} do not match the configured encoder "
+            f"(preset {preset!r}): " + "; ".join(bad[:3])
+            + (f"; … {len(bad) - 3} more" if len(bad) > 3 else ""))
+
+
+def import_b0(model: torch.nn.Module, state_dict: dict, spec="") -> None:
+    """Load a raw EfficientNet-B0 state_dict into ``model``'s ground and
+    satellite encoders, weights and BN statistics; the classifier head
+    ``_fc.*`` is left as it is (unused, as ``load_fc=False``) and
+    ``num_batches_tracked`` is the model's own.  ``spec`` names the file in
+    the error raised when its shapes do not fit the model's preset."""
+    def tensors(sd):
+        return {k: v for k, v in sd.items()
+                if not k.startswith("_fc.") and not k.endswith("num_batches_tracked")}
+
+    have = tensors(state_dict)
+    for name in ("grd_efficientnet", "sat_efficientnet"):
+        encoder = getattr(model, name)
+        check_shapes(tensors(encoder.state_dict()), have, spec, model.cfg.name)
+        encoder.load_state_dict(have, strict=False)
+
+
 def load_state_dict(path) -> dict[str, torch.Tensor]:
     """Read a reference-format ``.pt`` checkpoint (``torch.save`` of a
     state_dict) onto the CPU."""
@@ -131,7 +169,10 @@ def load_state_dict(path) -> dict[str, torch.Tensor]:
 
 def save_state_dict(module: torch.nn.Module, path) -> None:
     """Write ``module``'s state_dict as a reference-format ``.pt``: contiguous
-    CPU tensors under the reference's key names, readable by
-    ``load_state_dict`` here and ``ccvpe_tpu.io.torch_import.load_state_dict``
-    (JAX ``io/torch_import.py::save_torch_checkpoint``)."""
-    torch.save({k: v.detach().cpu().contiguous() for k, v in module.state_dict().items()}, path)
+    CPU tensors under the reference's key names, floats in float32 (also
+    from bfloat16 parameters, exactly, as the JAX export casts them),
+    readable by ``load_state_dict`` here and
+    ``ccvpe_tpu.io.torch_import.load_state_dict`` (JAX
+    ``io/torch_import.py::save_torch_checkpoint``)."""
+    torch.save({k: (v.float() if v.is_floating_point() else v).detach().cpu().contiguous()
+                for k, v in module.state_dict().items()}, path)

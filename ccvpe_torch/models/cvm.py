@@ -20,7 +20,14 @@ autograd on, the kernels' backward is autograd through the plain versions.
 
 Training uses ``nn.Module.train()``: the BatchNorms normalise with batch
 statistics and update their running statistics, and a ``generator`` passed
-to ``forward`` turns on drop-connect in both backbones.
+to ``forward`` turns on drop-connect in both backbones.  ``remat`` chooses
+what the backward recomputes instead of keeping (JAX ``forward(...,
+remat=)``): the MBConv blocks of both encoders, each decoder stage, or
+both.
+
+The forward runs in the inputs' dtype: float32, or bfloat16 with every
+weight cast at its op (``nn.layers``); the matching accumulates in float32
+and returns the inputs' dtype.
 """
 
 from __future__ import annotations
@@ -33,7 +40,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..nn.efficientnet import EfficientNet
-from ..nn.layers import ConvSpec, StaticPadConv2d, deconv2x2, init_uniform_, l2_normalize
+from ..nn.layers import (
+    Conv2d,
+    ConvSpec,
+    Linear,
+    StaticPadConv2d,
+    checkpoint,
+    deconv2x2,
+    init_uniform_,
+    l2_normalize,
+)
 from ..ops import matching
 
 N_SCALES = 6
@@ -126,6 +142,16 @@ NANO = CVMConfig(
 PRESETS = {"VIGOR": VIGOR, "KITTI": KITTI, "OxfordRobotCar": OXFORD,
            "TINY": TINY, "NANO": NANO}
 
+REMAT_SCOPES = (False, True, "all", "encoder", "decoder")
+
+
+def remat_scopes(remat: bool | str) -> tuple[bool, bool]:
+    """(encoder, decoder) checkpointed for a ``remat`` value; a misspelt
+    scope raises rather than silently turning remat off."""
+    if remat not in REMAT_SCOPES:
+        raise ValueError(f"remat must be False/True/'all'/'encoder'/'decoder', got {remat!r}")
+    return remat in (True, "all", "encoder"), remat in (True, "all", "decoder")
+
 
 class CVMOutputs(NamedTuple):
     """The reference forward's outputs, NHWC."""
@@ -166,8 +192,8 @@ def _decoder_widths(cfg: CVMConfig, branch: str):
 
 def _double_conv(cin: int, mid: int, cout: int) -> nn.Sequential:
     # the reference's own symmetric Conv2d(padding=1) pads (not TF-SAME)
-    return nn.Sequential(nn.Conv2d(cin, mid, 3, padding=1), nn.ReLU(),
-                         nn.Conv2d(mid, cout, 3, padding=1))
+    return nn.Sequential(Conv2d(cin, mid, 3, padding=1), nn.ReLU(),
+                         Conv2d(mid, cout, 3, padding=1))
 
 
 def _nchw(x_nhwc: torch.Tensor) -> torch.Tensor:
@@ -192,7 +218,7 @@ class CVM(nn.Module):
                 "2": StaticPadConv2d(ConvSpec(h, 1, 1, bias=True)),
             }))
         self.sat_feature_to_descriptors = nn.ModuleDict(
-            {"1": nn.Linear(cfg.feat_dim * 2 * 2, cfg.sat_desc_dim)})
+            {"1": Linear(cfg.feat_dim * 2 * 2, cfg.sat_desc_dim)})
         for branch, suffix in (("loc", ""), ("ori", "_ori")):
             for s, (d_in, d_out, c_in, c_out) in enumerate(_decoder_widths(cfg, branch)):
                 name = N_SCALES - s  # reference names run 6..1
@@ -214,7 +240,8 @@ class CVM(nn.Module):
         head = getattr(self, f"grd_feature_to_descriptor{k + 1}")
         y = head["0"](feat)                                   # [B, C_k, H, W]
         conv_h = head["2"]
-        d = torch.einsum("bchw,h->bwc", y, conv_h.weight[0, :, 0, 0]) + conv_h.bias[0]
+        wh, bh = conv_h.weight[0, :, 0, 0].to(y.dtype), conv_h.bias[0].to(y.dtype)
+        d = torch.einsum("bchw,h->bwc", y, wh) + bh
         return d.reshape(d.shape[0], -1).contiguous()
 
     def _sat_descriptor_grid(self, feat: torch.Tensor) -> torch.Tensor:
@@ -226,15 +253,22 @@ class CVM(nn.Module):
         return self.sat_feature_to_descriptors["1"](x)
 
     def _stage(self, branch_suffix: str, s: int, x: torch.Tensor, skip):
+        """One decoder stage: deconv, the skip concatenated, double conv."""
         name = N_SCALES - s
         x = getattr(self, f"deconv{name}{branch_suffix}")(x)
         if s < 5:
             x = torch.cat([x, skip], dim=1)
         return getattr(self, f"conv{name}{branch_suffix}")(x)
 
+    def _loc_stage(self, s: int, smax: torch.Tensor, xnorm: torch.Tensor, skip):
+        """A localization stage on the matching's max score and normalised map."""
+        y = _nchw(torch.cat([smax, xnorm], dim=-1))           # channels_last
+        return self._stage("", s, y, skip)
+
     def forward(self, grd: torch.Tensor, sat: torch.Tensor, *, loc_offsets=None,
                 circular: bool | None = None, matching_impl: str = "kernel",
-                generator: torch.Generator | None = None) -> CVMOutputs:
+                generator: torch.Generator | None = None,
+                remat: bool | str = False) -> CVMOutputs:
         """grd [B, Hg, Wg, 3], sat [B, Hs, Ws, 3] NHWC, ImageNet-normalised.
 
         ``loc_offsets``: orientation-bin offsets of the localization branch;
@@ -244,9 +278,12 @@ class CVM(nn.Module):
         cropped panorama).  ``matching_impl``: 'kernel' (device dispatch:
         the CUDA kernels on a CUDA tensor) or 'plain'.  ``generator``: the
         drop-connect draws of both backbones in train mode (None: no
-        drop-connect, as the JAX forward without ``rng``).
+        drop-connect, as the JAX forward without ``rng``).  ``remat``:
+        False, True or 'all' (both encoders' MBConv blocks and every decoder
+        stage), 'encoder' or 'decoder'.
         """
         cfg = self.cfg
+        remat_enc, remat_dec = remat_scopes(remat)
         if matching_impl == "kernel":
             scores_fn, epilogue_fn = matching.matching_scores, matching.matching_epilogue
         elif matching_impl == "plain":
@@ -260,9 +297,9 @@ class CVM(nn.Module):
         cl = torch.channels_last
         grd = _nchw(grd).contiguous(memory_format=cl)
         sat = _nchw(sat).contiguous(memory_format=cl)
-        grd_feat, _ = self.grd_efficientnet(grd, circular, generator)
+        grd_feat, _ = self.grd_efficientnet(grd, circular, generator, remat_enc)
         descs = [self._grd_descriptor(k, grd_feat) for k in range(N_SCALES)]
-        sat_feat, ms = self.sat_efficientnet(sat, generator=generator)
+        sat_feat, ms = self.sat_efficientnet(sat, generator=generator, remat=remat_enc)
         skips = [ms[i] for i in cfg.skip_blocks]
         sat_desc = self._sat_descriptor_grid(sat_feat)        # NHWC, contiguous
 
@@ -281,8 +318,11 @@ class CVM(nn.Module):
                 if loc_bins != full_bins:
                     stack = scores_fn(x, g, cfg.shifts[s], full_bins, cfg.window)
             stacks.append(stack)
-            y = _nchw(torch.cat([smax, xnorm], dim=-1))       # channels_last
-            y = self._stage("", s, y, skips[s] if s < 5 else None)
+            skip = skips[s] if s < 5 else None
+            if remat_dec:
+                y = checkpoint(self._loc_stage, s, smax, xnorm, skip)
+            else:
+                y = self._loc_stage(s, smax, xnorm, skip)
             x = _nhwc(y)
 
         b = x.shape[0]
@@ -291,6 +331,7 @@ class CVM(nn.Module):
 
         y = _nchw(torch.cat([stacks[0], sat_desc_norm], dim=-1))
         for s in range(N_SCALES):
-            y = self._stage("_ori", s, y, skips[s] if s < 5 else None)
+            args = ("_ori", s, y, skips[s] if s < 5 else None)
+            y = checkpoint(self._stage, *args) if remat_dec else self._stage(*args)
         ori = _nhwc(l2_normalize(y, dim=1))
         return CVMOutputs(logits, heatmap, ori, tuple(stacks))

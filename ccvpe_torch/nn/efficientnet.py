@@ -11,6 +11,9 @@ counterpart of ``ccvpe_tpu/nn/efficientnet.py``.
 * Drop-connect on the identity-skip blocks at rate
   ``DROP_CONNECT_RATE * i / n`` (block i of n), only in train mode and only
   when ``forward`` is given a ``torch.Generator`` to draw from.
+* ``forward(..., remat=True)`` recomputes each MBConv block's internals in
+  the backward and keeps only the block outputs (JAX ``b0_apply(...,
+  remat=True)``), through ``layers.checkpoint``.
 
 Module names follow the reference's state_dict keys (``_conv_stem``,
 ``_bn0``, ``_blocks.N._expand_conv``, ..., ``_conv_head``, ``_bn1``,
@@ -31,6 +34,7 @@ from .layers import (
     ConvSpec,
     StaticPadConv2d,
     batch_norm,
+    checkpoint,
     drop_connect_random,
     same_pad,
     silu,
@@ -185,16 +189,18 @@ class EfficientNet(nn.Module):
         nn.init.zeros_(self._fc.bias)
 
     def forward(self, x: torch.Tensor, circular: bool | None = None,
-                generator: torch.Generator | None = None
+                generator: torch.Generator | None = None, remat: bool = False
                 ) -> tuple[torch.Tensor, list[torch.Tensor]]:
         """x [B, 3, H, W] -> (head features [B, C, h, w], block outputs).
-        ``generator``: the draws of drop-connect in train mode (None: off)."""
+        ``generator``: the draws of drop-connect in train mode (None: off).
+        ``remat``: checkpoint each MBConv block."""
         circular = self.circular if circular is None else circular
         x = silu(self._bn0(self._conv_stem(x, circular)))
         multiscale = []
         n = len(self._blocks)
         for i, block in enumerate(self._blocks):
-            x = block(x, circular, DROP_CONNECT_RATE * i / n, generator)
+            args = (x, circular, DROP_CONNECT_RATE * i / n, generator)
+            x = checkpoint(block, *args, generator=generator) if remat else block(*args)
             multiscale.append(x)
         x = silu(self._bn1(self._conv_head(x, circular)))
         return x, multiscale

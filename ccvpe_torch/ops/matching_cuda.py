@@ -31,8 +31,9 @@ A wrapper takes a CPU tensor to the kernel's plain version in
 NHWC contiguity and raises on anything else (no silent copy may hide a
 layout bug), allocates the outputs with ``torch.empty``, launches on the
 current stream and raises if the launch failed; it never falls back to the
-plain version.  ``LAUNCHES`` counts each kernel's launches and
-``LAUNCHES_BY_LAYOUT`` each (kernel, layout)'s.  The backward is
+plain version.  ``LAUNCH_COUNTS`` counts the launches of each (kernel,
+layout, 'float32' or 'bfloat16') under a lock; ``launch_counts`` sums them
+by kernel, layout or dtype.  The backward is
 autograd through the plain version (the TPU kernels' custom VJPs do the
 same through the einsum), so the kernels also serve training.
 """
@@ -41,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import torch
@@ -48,12 +50,12 @@ import torch
 from . import _build
 from .matching import bin_shifts, matching_epilogue_plain, matching_scores_plain
 
-# kernel launches on the CUDA path, by kernel and by (kernel, layout); reset
-# with reset_launch_counts
-LAUNCHES = {"matching_epilogue": 0, "matching_scores": 0}
-LAUNCHES_BY_LAYOUT = {("matching_epilogue", "warp"): 0, ("matching_epilogue", "row"): 0,
-                      ("matching_epilogue", "tile"): 0, ("matching_scores", "warp"): 0,
-                      ("matching_scores", "row"): 0, ("matching_scores", "tile"): 0}
+# kernel launches on the CUDA path, by (kernel, layout, dtype); reset with
+# reset_launch_counts
+LAUNCH_COUNTS = {(k, lay, d): 0 for k in ("matching_epilogue", "matching_scores")
+                 for lay in ("warp", "row", "tile") for d in ("float32", "bfloat16")}
+_COUNT_LOCK = threading.Lock()
+_FIELDS = ("layout", "dtype")
 
 MAX_BINS = 32
 MAX_CHANNELS = 4096  # warp layout: 2 * Cs f32 descriptor copies in 48 KB of shared memory
@@ -136,10 +138,27 @@ class TilePlan(NamedTuple):
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-    for k in LAUNCHES_BY_LAYOUT:
-        LAUNCHES_BY_LAYOUT[k] = 0
+    with _COUNT_LOCK:
+        for k in LAUNCH_COUNTS:
+            LAUNCH_COUNTS[k] = 0
+
+
+def launch_counts(*by: str) -> dict:
+    """``LAUNCH_COUNTS`` summed over the fields not in ``by`` ('layout',
+    'dtype'): by kernel name when ``by`` is empty, else by (kernel, *by)."""
+    keep = [_FIELDS.index(f) + 1 for f in by]
+    out: dict = {}
+    with _COUNT_LOCK:
+        for key, n in LAUNCH_COUNTS.items():
+            k = (key[0], *(key[i] for i in keep)) if keep else key[0]
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def _count(kernel: str, layout: str, dtype: torch.dtype) -> None:
+    """One launch of ``kernel`` in ``layout`` on ``dtype`` inputs."""
+    with _COUNT_LOCK:
+        LAUNCH_COUNTS[kernel, layout, str(dtype).removeprefix("torch.")] += 1
 
 
 @functools.cache
@@ -476,8 +495,7 @@ def launch_matching_epilogue(x, g, shift, offsets, window, layout=None):
             *_tile_args(plan),
             torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(rc, "matching_epilogue")
-    LAUNCHES["matching_epilogue"] += 1
-    LAUNCHES_BY_LAYOUT["matching_epilogue", plan.layout] += 1
+    _count("matching_epilogue", plan.layout, x.dtype)
     return scores, smax, xnorm
 
 
@@ -501,8 +519,7 @@ def launch_matching_scores(x, g, shift, offsets, window, layout=None):
             nseg, ctypes.addressof(ends), block, *map(ctypes.addressof, pieces),
             torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(rc, "matching_scores")
-    LAUNCHES["matching_scores"] += 1
-    LAUNCHES_BY_LAYOUT["matching_scores", plan.layout] += 1
+    _count("matching_scores", plan.layout, x.dtype)
     return scores
 
 

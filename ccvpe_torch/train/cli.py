@@ -17,10 +17,7 @@ import torch
 from .harness import Trainer
 
 # flags whose features the port lacks, with the ROADMAP.md item that ports them
-NOT_PORTED = {
-    "bf16": "Queue 1 item 3", "bf16_params": "Queue 1 item 3", "remat": "Queue 1 item 3",
-    "pretrained_b0": "Queue 1 item 3", "zero1": "Queue 1 item 7", "n_model": "Queue 1 item 7",
-}
+NOT_PORTED = {"zero1": "Queue 1 item 7", "n_model": "Queue 1 item 7"}
 
 
 def add_common_flags(p: argparse.ArgumentParser, *, test_model_path: str,
@@ -72,11 +69,19 @@ def add_common_flags(p: argparse.ArgumentParser, *, test_model_path: str,
     not_ported = "not ported to ccvpe_torch yet: exits"
     p.add_argument("--zero1", action="store_true", help=not_ported)
     p.add_argument("--n_model", type=int, default=1, help=f"values > 1 are {not_ported}")
-    p.add_argument("--bf16", action="store_true", help=not_ported)
-    p.add_argument("--bf16_params", action="store_true", help=not_ported)
-    p.add_argument("--pretrained_b0", type=str, default="", help=not_ported)
+    p.add_argument("--bf16", action="store_true",
+                   help="train in bfloat16 (inputs and activations; the loss in float32)")
+    p.add_argument("--bf16_params", action="store_true",
+                   help="bfloat16-resident parameters with a float32 master in the "
+                        "optimizer state")
+    p.add_argument("--pretrained_b0", type=str, default="",
+                   help="initialize both encoders from a raw EfficientNet-B0 state_dict: "
+                        "a local path, or 'auto'/'efficientnet-bN' through the verified "
+                        "download cache")
     p.add_argument("--remat", nargs="?", const="all", default="",
-                   choices=("all", "encoder", "decoder"), help=not_ported)
+                   choices=("all", "encoder", "decoder"),
+                   help="recompute activations in the backward: 'all' (the default "
+                        "when given bare), only the encoders, or only the decoder stages")
 
 
 def parse(p: argparse.ArgumentParser, argv=None) -> argparse.Namespace:
@@ -110,18 +115,22 @@ def make_trainer(cfg, args, *, label: str, checkpoint_dir: str, device) -> Train
         results_dir=args.results_dir, label=label, batch_size=args.batch_size,
         checkpoint_every_steps=args.checkpoint_every_steps,
         keep_checkpoints=args.keep_checkpoints, profile_dir=args.profile_dir or None,
-        grad_accum=args.grad_accum, matching_impl=args.matching_impl, device=device)
+        grad_accum=args.grad_accum, matching_impl=args.matching_impl, device=device,
+        compute_dtype="bfloat16" if args.bf16 else "float32",
+        param_dtype="bfloat16" if args.bf16_params else "float32",
+        remat=args.remat or False)
 
 
 def start_training(trainer: Trainer, args) -> None:
     """Resume with ``--resume`` when a checkpoint is there; else warm-start
-    from ``--init_model_path`` or start from seeded weights."""
+    from ``--init_model_path``, or start from seeded weights (both encoders
+    from ``--pretrained_b0`` when given)."""
     if args.resume and trainer.resume():
         return
     if args.init_model_path:
         trainer.load_torch_checkpoint(args.init_model_path)
     else:
-        trainer.init_state()
+        trainer.init_state(pretrained_b0=args.pretrained_b0 or None)
 
 
 def load_eval_model(trainer: Trainer, path: str) -> None:

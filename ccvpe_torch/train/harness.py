@@ -9,8 +9,12 @@ reference's results files (one scalar appended per epoch) plus a JSON
 summary per epoch.
 
 The JAX trainer's device mesh has no counterpart: this one runs on
-``device`` (default ``cuda``).  Its tensor-parallel, ZeRO-1, bfloat16 and
-rematerialisation options are not ported yet and raise.
+``device`` (default ``cuda``).  Its tensor-parallel and ZeRO-1 options are
+not ported yet and raise.  ``compute_dtype='bfloat16'`` trains in
+bfloat16, ``param_dtype='bfloat16'`` keeps the parameters in bfloat16 with
+a float32 master in the optimizer, ``remat`` recomputes the chosen scope in
+the backward (``train.loop``); evaluation always takes float32 inputs, so
+bfloat16 parameters evaluate cast to float32 at each op.
 """
 
 from __future__ import annotations
@@ -63,12 +67,6 @@ class Trainer:
             raise _not_ported(f"n_model={n_model} (tensor parallelism)", "item 7")
         if zero1:
             raise _not_ported("zero1 (sharded optimizer state)", "item 7")
-        if compute_dtype != "float32":
-            raise _not_ported(f"compute_dtype={compute_dtype!r}", "item 3")
-        if param_dtype != "float32":
-            raise _not_ported(f"param_dtype={param_dtype!r}", "item 3")
-        if remat:
-            raise _not_ported(f"remat={remat!r}", "item 3")
         if batch_size and batch_size % grad_accum:
             raise ValueError(f"batch {batch_size} must be divisible by grad_accum={grad_accum}")
         self.model_cfg = model_cfg
@@ -78,12 +76,17 @@ class Trainer:
         self.label = label
         self.log_every = log_every
         self.matching_impl = matching_impl
+        # bfloat16-resident parameters keep a float32 master in the optimizer
+        self.param_dtype = train_loop.as_dtype(param_dtype)
+        self.compute_dtype = train_loop.as_dtype(compute_dtype)
+        self.remat = remat
         # drop-connect draws; seeded once and, as the JAX trainer's PRNG
         # key, not restored on resume
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._train_step = train_loop.make_train_step(
             model_cfg, weight_info_nce=weight_info_nce, weight_ori=weight_ori,
-            grad_accum=grad_accum, matching_impl=matching_impl)
+            grad_accum=grad_accum, matching_impl=matching_impl, remat=remat,
+            compute_dtype=compute_dtype)
         self._eval_steps: dict = {}
         self.ckpt = (CheckpointManager(checkpoint_dir, max_to_keep=keep_checkpoints or None)
                      if checkpoint_dir else None)
@@ -98,10 +101,11 @@ class Trainer:
 
     # -- state ------------------------------------------------------------
     def init_state(self, seed: int = 17, pretrained_b0: str | None = None):
-        if pretrained_b0 is not None:
-            raise _not_ported("pretrained_b0", "item 3")
-        self.state = train_loop.create_train_state(self.model_cfg, seed=seed, device=self.device,
-                                                   learning_rate=self.learning_rate)
+        """Seeded weights; ``pretrained_b0`` starts both encoders from a raw
+        EfficientNet-B0 state_dict (``train.loop.create_train_state``)."""
+        self.state = train_loop.create_train_state(
+            self.model_cfg, seed=seed, device=self.device, learning_rate=self.learning_rate,
+            param_dtype=self.param_dtype, pretrained_b0=pretrained_b0)
         return self.state
 
     def load_torch_checkpoint(self, path: str):
@@ -110,7 +114,7 @@ class Trainer:
 
         self.state = train_loop.train_state_from_torch(
             load_state_dict(path), self.model_cfg, device=self.device,
-            learning_rate=self.learning_rate)
+            learning_rate=self.learning_rate, param_dtype=self.param_dtype, spec=path)
         return self.state
 
     def resume(self) -> bool:

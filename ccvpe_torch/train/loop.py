@@ -10,6 +10,14 @@ update with the reference's hyperparameters.
     step = make_train_step(cvm.VIGOR)
     parts = step(state, batch, generator)
 
+Training options, as the JAX step takes them: ``remat`` (what the
+backward recomputes: ``models.cvm.remat_scopes``), ``compute_dtype``
+(bfloat16: the inputs, and so the forward and backward, in bfloat16; the
+loss in float32), and bfloat16-resident parameters with a float32 master
+in the optimizer (``create_train_state(param_dtype=torch.bfloat16)``,
+``F32MasterAdam``).  ``pretrained_b0`` starts both encoders from a raw
+EfficientNet-B0 state_dict.
+
 The eval steps run the forward in eval mode without autograd:
 ``make_eval_step`` returns the model's outputs, ``make_eval_readout_step``
 the per-sample pose scalars of ``ops.readout.pose_readout_from_outputs``.
@@ -45,38 +53,128 @@ class TrainState:
     step: int = 0
 
 
-def make_optimizer(params, learning_rate: float = 1e-4) -> torch.optim.Adam:
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def as_dtype(dtype: str | torch.dtype | None) -> torch.dtype | None:
+    """A torch dtype from its name ('float32', 'bfloat16'), or as given."""
+    return DTYPES[dtype] if isinstance(dtype, str) else dtype
+
+
+def make_optimizer(params, learning_rate: float = 1e-4, f32_master: bool = False):
     """Adam with the reference's betas (0.9, 0.999); eps 1e-8 as optax's
-    ``adam`` (whose ``eps_root`` is 0)."""
+    ``adam`` (whose ``eps_root`` is 0).  ``f32_master=True``: an
+    ``F32MasterAdam`` over float32 copies of ``params`` as they are now,
+    for parameters that are then cast to bfloat16."""
+    params = list(params)
+    if f32_master:
+        return F32MasterAdam(params, learning_rate)
     return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
 
 
-def _state_for(model: cvm.CVM, device: torch.device, learning_rate: float) -> TrainState:
+class F32MasterAdam:
+    """Adam on float32 master copies of bfloat16-resident parameters (JAX
+    ``train/loop.py::with_f32_master``).
+
+    ``step`` casts each gradient to float32, steps Adam on the master, and
+    sets the resident parameter as ``optax.apply_updates`` leaves it:
+    ``bf16(p + (m - p))`` in float32, which is ``bf16(m)`` up to the
+    rounding of the two float32 operations.  The masters are taken when the
+    optimizer is made, so make it on the unrounded parameters.  Parameters
+    without a gradient (the unused ``_fc`` heads) are left alone, as Adam
+    leaves them."""
+
+    def __init__(self, params, learning_rate: float = 1e-4):
+        self.params = list(params)
+        self.master = [p.detach().float().clone() for p in self.params]
+        self.inner = make_optimizer(self.master, learning_rate)
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        for p in self.params:
+            p.grad = None
+        self.inner.zero_grad(set_to_none=True)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        for p, m in zip(self.params, self.master):
+            m.grad = None if p.grad is None else p.grad.float()
+        self.inner.step()
+        for p, m in zip(self.params, self.master):
+            if m.grad is not None:
+                pf = p.float()
+                p.copy_(pf + (m - pf))
+        self.inner.zero_grad(set_to_none=True)
+
+    def state_dict(self) -> dict:
+        """Adam's ``state_dict`` plus ``master``, the float32 copies in
+        parameter order."""
+        return {**self.inner.state_dict(), "master": list(self.master)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        state = dict(state)
+        for m, v in zip(self.master, state.pop("master"), strict=True):
+            m.copy_(v)
+        self.inner.load_state_dict(state)
+
+
+def _state_for(model: cvm.CVM, device: torch.device, learning_rate: float,
+               param_dtype: torch.dtype | None = None) -> TrainState:
+    """The optimizer is made on the float32 parameters, then they are cast,
+    not the buffers: the BN running statistics stay float32 (JAX
+    ``create_train_state``: the master captures the unrounded copy)."""
     model = model.to(device=device, memory_format=torch.channels_last).train()
-    return TrainState(model, make_optimizer(model.parameters(), learning_rate))
+    param_dtype = as_dtype(param_dtype)
+    master = param_dtype not in (None, torch.float32)
+    optimizer = make_optimizer(model.parameters(), learning_rate, f32_master=master)
+    if master:
+        for p in model.parameters():
+            p.data = p.data.to(param_dtype)
+    return TrainState(model, optimizer)
 
 
 def create_train_state(cfg: cvm.CVMConfig, seed: int = 0,
                        device: str | torch.device | None = None,
-                       learning_rate: float = 1e-4) -> TrainState:
+                       learning_rate: float = 1e-4,
+                       param_dtype: str | torch.dtype | None = None,
+                       pretrained_b0: str | None = None) -> TrainState:
     """A seeded model in train mode, channels_last on ``device`` (default
     ``cuda``; raises when CUDA is absent and no device was asked for), and
-    its optimizer."""
+    its optimizer.
+
+    ``param_dtype`` (bfloat16): resident parameters in that dtype, with a
+    float32 master in the optimizer.  ``pretrained_b0``: a raw
+    EfficientNet-B0 state_dict -- a local path, or ``auto`` /
+    ``efficientnet-bN`` through the verified download cache
+    (``io.pretrained.resolve``) -- into both encoders; a file that does not
+    fit the preset raises ``ValueError`` naming its first mismatched keys."""
     device = resolve_device(device)
     model = cvm.CVM(cfg).init_weights_(torch.Generator().manual_seed(seed))
-    return _state_for(model, device, learning_rate)
+    if pretrained_b0 is not None:
+        from ..io.from_jax import import_b0, load_state_dict
+        from ..io.pretrained import resolve
+
+        import_b0(model, load_state_dict(resolve(pretrained_b0)), pretrained_b0)
+    return _state_for(model, device, learning_rate, param_dtype)
 
 
 def train_state_from_torch(state_dict: dict, cfg: cvm.CVMConfig, *,
                            device: str | torch.device | None = None,
-                           learning_rate: float = 1e-4) -> TrainState:
+                           learning_rate: float = 1e-4,
+                           param_dtype: str | torch.dtype | None = None,
+                           spec: str = "state_dict") -> TrainState:
     """A train state from a reference-format state_dict
     (``io.from_jax.load_state_dict``): its weights and BN statistics, a
-    fresh Adam and step 0 (JAX ``train/loop.py::train_state_from_torch``)."""
+    fresh Adam and step 0 (JAX ``train/loop.py::train_state_from_torch``).
+    A state_dict that does not fit ``cfg`` raises ``ValueError`` naming
+    its first mismatched keys (``spec`` names the file)."""
+    from ..io.from_jax import check_shapes
+
     device = resolve_device(device)
     model = cvm.CVM(cfg)
+    check_shapes(model.state_dict(), state_dict, spec, cfg.name)
     model.load_state_dict(state_dict, strict=True)
-    return _state_for(model, device, learning_rate)
+    return _state_for(model, device, learning_rate, param_dtype)
 
 
 @contextlib.contextmanager
@@ -95,9 +193,17 @@ def _check_model(model: cvm.CVM, cfg: cvm.CVMConfig) -> None:
         raise ValueError(f"a step built for {cfg.name} got a {model.cfg.name} model")
 
 
+def _grad_norm(grads: list[torch.Tensor]) -> torch.Tensor:
+    """The global norm, in float32 also over bfloat16 gradients."""
+    if any(g.dtype != torch.float32 for g in grads):
+        grads = [g.float() for g in grads]
+    return torch.nn.utils.get_total_norm(grads)
+
+
 def make_train_step(cfg: cvm.CVMConfig, *, weight_info_nce: float = 1e4,
                     weight_ori: float = 1e1, grad_accum: int = 1,
-                    matching_impl: str = "kernel"):
+                    matching_impl: str = "kernel", remat: bool | str = False,
+                    compute_dtype: str | torch.dtype = torch.float32):
     """The train step for ``cfg``: ``step(state, batch, generator=None)``
     updates ``state`` in place and returns the loss parts
     (``loss``, ``ce``, ``info_nce``, ``ori``) and ``grad_norm``, the global
@@ -109,7 +215,12 @@ def make_train_step(cfg: cvm.CVMConfig, *, weight_info_nce: float = 1e4,
     running statistics chain through all N; gradients and loss parts are
     the microbatches' means; Adam steps once.  ``generator`` draws
     drop-connect (None: off).  ``matching_impl``: 'kernel' or 'plain', as
-    ``CVM.forward`` takes it."""
+    ``CVM.forward`` takes it.  ``remat``: False, True/'all', 'encoder' or
+    'decoder' (``models.cvm.remat_scopes``).  ``compute_dtype``: the dtype
+    the images are cast to, and so the forward's and backward's; the loss
+    parts stay float32."""
+    cvm.remat_scopes(remat)
+    compute_dtype = as_dtype(compute_dtype)
 
     def train_step(state: TrainState, batch: dict, generator: torch.Generator | None = None
                    ) -> dict[str, torch.Tensor]:
@@ -124,8 +235,8 @@ def make_train_step(cfg: cvm.CVMConfig, *, weight_info_nce: float = 1e4,
             for j in range(grad_accum):
                 mb = {k: v[j::grad_accum] for k, v in batch.items()}
                 with record_function(FORWARD_RANGE):
-                    out = model(mb["grd"], mb["sat"], matching_impl=matching_impl,
-                                generator=generator)
+                    out = model(mb["grd"].to(compute_dtype), mb["sat"].to(compute_dtype),
+                                matching_impl=matching_impl, generator=generator, remat=remat)
                     loss, parts = losses.total_loss(
                         out, mb["gt"], mb["bin_weights"], mb["orientation"],
                         weight_info_nce=weight_info_nce, weight_ori=weight_ori)
@@ -135,7 +246,7 @@ def make_train_step(cfg: cvm.CVMConfig, *, weight_info_nce: float = 1e4,
         with record_function(OPTIMIZER_RANGE):
             grads = [p.grad for p in model.parameters() if p.grad is not None]
             parts = {k: v / grad_accum for k, v in sums.items()}
-            parts["grad_norm"] = torch.nn.utils.get_total_norm(grads)
+            parts["grad_norm"] = _grad_norm(grads)
             state.optimizer.step()
         state.step += 1
         return parts

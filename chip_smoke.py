@@ -15,7 +15,10 @@ Phases, each printing one JSON line:
    with a zero row and, for a masked window, a row that is zero inside one
    bin's window only, in float32 and bfloat16; then times of each layout,
    the plain version and ``torch.bmm`` (a yardstick only) beside the least
-   time the card could take.
+   time the card could take; then both kernels in bfloat16 at the VIGOR,
+   KITTI and Oxford shapes of the bfloat16 paths (bound at 2 bytes per
+   element and the tensor cores' bfloat16 rate, ``torch.bmm`` in bfloat16
+   beside it), each timed shape also checked against the plain version.
 4. model:   ``ccvpe_torch.api.load_model(preset="VIGOR", seed=0)`` on the
    card; ``predict_batch`` at batch 8 with ``ori_noise`` 180 and 36 and with
    ``fov=180``, counting kernel launches by kernel and by layout (K1: tile
@@ -36,6 +39,18 @@ Phases, each printing one JSON line:
    peak memory); (c) one NANO step on the card against the CPU; (d) the
    device time of one step by part (forward, matching backward, rest of
    the backward, optimizer) and by kernel (``torch.profiler``).
+   train_options: the training options on the same VIGOR step (batch 8,
+   TF32 off): (a) one bfloat16 step through K1 against the same step
+   through the plain versions, cuDNN deterministic, every loss part,
+   gradient and BN statistic within ``BF16_TRAIN_TOL`` (set from these
+   kernel-vs-plain readings, which it prints first), K1's bfloat16 launches
+   by layout exactly; (b) remat 'all',
+   'encoder' and 'decoder' against no remat with drop-connect on (loss
+   parts 1e-6, gradients, BN, the generator's end state); (c) three steps
+   of bfloat16 parameters with the float32 master (each resident
+   parameter ``bf16(p + (m - p))`` as optax leaves it; the elements off
+   the rounded master counted); (d) step ms and peak memory of float32,
+   bfloat16, bfloat16 with bfloat16 parameters and each remat scope.
    data:    the input pipeline on synthetic dataset roots written from
    seeds (``write_roots``; VIGOR's cross-area train split: 48 2048x1024 JPEG
    panoramas and 640x640 PNG tiles over two cities): ``VigorIndex`` ->
@@ -61,9 +76,25 @@ Phases, each printing one JSON line:
    again through the plain versions: the same pixel for every sample, equal
    distances, prob_at_gt within 1e-6, heading within 0.1 degree; launches
    by layout, train and eval pairs/s, and the card's idle share over one
-   eval pass (``torch.profiler``).
+   eval pass (``torch.profiler``).  Then the training options:
+   ``train_VIGOR --bf16 --bf16_params --remat --pretrained_b0`` (a B0 file
+   written from the port's seeded encoder) trains 2 steps, checkpoints and
+   resumes bit for bit (the float32 master included); ``api.load_model`` of
+   that checkpoint directory serves through the kernels against the plain
+   versions; ``train_KITTI --device_augment --bf16`` and
+   ``train_OxfordRobotCar --bf16`` train 2 steps each (K2, and KITTI's K1
+   at 256^2 x 32, in bfloat16 inside a model): finite losses, the exact
+   bfloat16 launches by kernel and layout of their train steps, peak memory.
 6. timing:  steady-state ``predict_batch`` pairs/s at batch 8 in float32,
    and the device time by kernel of three calls (``torch.profiler``).
+7. serve:   ``ccvpe_torch.serve`` on 127.0.0.1 with the ``model`` phase's
+   VIGOR model at batch 8, ``max_wait_ms`` 5: 96 ``/predict`` requests from
+   16 client threads over the keys (180, 360), (36, 360) and (180, 180),
+   PNGs at model size and three at a raw size; every answer against
+   ``predict_batch`` through the plain versions (the same pixel, heading
+   0.1 degree, probability 1e-6); a 413 and a 408; requests/s, latency,
+   dispatches and batch fill, 503s, K1/K2 launches, and the card's idle
+   share under the same load (``torch.profiler``).
 
 Then the ``kernels`` summary line, the raw ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script then exits
@@ -106,9 +137,11 @@ DEADLINE_S = 1100   # the whole run, build included, must end well inside 1200 s
 BATCH = 8
 
 # Published peaks (NVIDIA data sheets, dense, at the full power limit):
-# device-memory bytes/s and float32 FLOP/s outside the tensor cores.
-PEAKS = {"H100 SXM": (3.35e12, 67e12), "H100 PCIe": (2.0e12, 51e12),
-         "H100 NVL": (3.9e12, 60e12)}
+# device-memory bytes/s, float32 FLOP/s outside the tensor cores, and
+# bfloat16 FLOP/s on the tensor cores (products of bfloat16 inputs summed in
+# float32, as both kernels compute them).
+PEAKS = {"H100 SXM": (3.35e12, 67e12, 989e12), "H100 PCIe": (2.0e12, 51e12, 756e12),
+         "H100 NVL": (3.9e12, 60e12, 835e12)}
 
 F32_TOL = dict(atol=1e-5, rtol=1e-5)
 # bf16: the kernel accumulates the bf16 inputs in f32 exactly as the f32 plain
@@ -131,7 +164,7 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def peaks_for(name: str) -> tuple[str, float, float]:
+def peaks_for(name: str) -> tuple[str, float, float, float]:
     part = "H100 PCIe" if "PCIe" in name else "H100 NVL" if "NVL" in name else "H100 SXM"
     return (part, *PEAKS[part])
 
@@ -190,12 +223,13 @@ def phase_device() -> dict:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
-    part, bw, f32 = peaks_for(name)
+    part, bw, f32, bf16 = peaks_for(name)
     info = {"phase": "device", "nvidia_smi": smi, "name": name,
             "power_limit": smi.split(",")[-1].strip(), "count": torch.cuda.device_count(),
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "sms": torch.cuda.get_device_properties(0).multi_processor_count,
-            "peaks_of": part, "peak_bytes_per_s": bw, "peak_f32_flops": f32}
+            "peaks_of": part, "peak_bytes_per_s": bw, "peak_f32_flops": f32,
+            "peak_bf16_flops": bf16}
     emit(info)
     return info
 
@@ -266,21 +300,28 @@ def _tile_plan_times(x, g, shift) -> dict:
     return times
 
 
-def _bound(nbytes: float, flops: float, dev: dict) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / dev["peak_bytes_per_s"], flops / dev["peak_f32_flops"]
+def _bound(nbytes: float, flops: float, dev: dict, dtype: str = "float32") -> tuple[float, str]:
+    """The least ms for the work: bytes over the memory rate, or operations
+    over the peak rate for ``dtype``'s products, whichever is larger."""
+    peak = dev["peak_bf16_flops"] if dtype == "bfloat16" else dev["peak_f32_flops"]
+    t_bytes, t_ops = nbytes / dev["peak_bytes_per_s"], flops / peak
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
-def _time_matching(kernel, b, hw, cs, cg, shift, offsets, window, dev: dict, seed) -> dict:
+def _time_matching(kernel, b, hw, cs, cg, shift, offsets, window, dev: dict, seed,
+                   dtype=torch.float32) -> dict:
     """Device ms of ``kernel`` ('K1' or 'K2') in the layout the wrapper
     picks and in every layout that takes the shape, of its plain version and
-    of ``torch.bmm`` (the product alone, a yardstick), beside the bound."""
-    x, g = _inputs(b, hw, cs, cg, seed, torch.float32)
+    of ``torch.bmm`` in ``dtype`` (the product alone, a yardstick), beside
+    the bound (bytes at ``dtype``'s size, operations at its peak rate); and
+    the picked layout's outputs held against the plain version in float32
+    on the same inputs (``max_abs_err``)."""
+    x, g = _inputs(b, hw, cs, cg, seed, dtype)
     offsets = tuple(offsets)
     bins = len(offsets)
     pixels = b * hw[0] * hw[1]
     ks = TM.bin_shifts(cs, cg, shift, offsets, window)
-    banded = TM._banded(g, cs, ks)                      # [B, Cs, bins]
+    banded = TM._banded(g, cs, ks).to(dtype)            # [B, Cs, bins]
     x3 = x.view(b, -1, cs)
     if kernel == "K1":
         def k_fn(layout=None):
@@ -295,30 +336,39 @@ def _time_matching(kernel, b, hw, cs, cg, shift, offsets, window, dev: dict, see
         out_elems = pixels * bins
         # products; squares; masked: a window product per bin
         flops = pixels * cs * (2 * bins + (2 * bins if cg < cs else 2))
-    nbytes = 4 * (x.numel() + g.numel() + out_elems)
-    bound, by = _bound(nbytes, flops, dev)
+    nbytes = x.element_size() * (x.numel() + g.numel() + out_elems)
+    bound, by = _bound(nbytes, flops, dev, str(dtype)[6:])
     layout = MC.pick_layout(KERNEL_NAMES[kernel], x, cg, bins)
+    plain = (TM.matching_epilogue_plain if kernel == "K1" else TM.matching_scores_plain)(
+        x.float(), g.float(), shift, offsets, window)
+    got = k_fn()
+    torch.cuda.synchronize()
+    err = _check(f"{kernel} {layout} x{[b, *hw, cs]} g{[b, cg]} {str(dtype)[6:]} (timed shape)",
+                 got if kernel == "K1" else (got,), plain if kernel == "K1" else (plain,), dtype)
     by_layout = {lay: device_ms(lambda lay=lay: k_fn(lay))
                  for lay in _layouts(kernel, x.shape, cg, bins, x.dtype)}
-    row = {"kernel": kernel, "x": [b, *hw, cs], "g": [b, cg], "bins": bins, "shift": shift,
+    row = {"kernel": kernel, "dtype": str(dtype)[6:], "x": [b, *hw, cs], "g": [b, cg],
+           "bins": bins, "shift": shift,
            "window": window, "layout": layout, "ms": by_layout[layout],
            "ms_by_layout": by_layout, "eager_ms": time_ms(k_fn), "plain_ms": device_ms(p_fn),
            "library_ms": device_ms(lambda: torch.bmm(x3, banded)),
-           "bound_ms": bound, "bound_by": by, "bytes": nbytes, "flops": flops}
+           "bound_ms": bound, "bound_by": by, "bytes": nbytes, "flops": flops,
+           "max_abs_err": err}
     row["achieved_bytes_per_s"] = nbytes / (row["ms"] * 1e-3)
     return row
 
 
-def _summary(name, rows, kernel, replaces, max_err, dev: dict) -> dict:
-    """One kernel row of the ``kernels`` line: the sums over ``rows``."""
+def _summary(name, rows, replaces, dev: dict) -> dict:
+    """One kernel row of the ``kernels`` line: the sums over ``rows`` (all
+    of one dtype), and the largest error of their checks at these shapes."""
     total = {k: sum(r[k] for r in rows) for k in
              ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops")}
+    dtype = rows[0]["dtype"]
     return {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-            "max_abs_err": max_err[kernel, torch.float32],
-            "max_abs_err_bf16": max_err[kernel, torch.bfloat16],
+            "dtype": dtype, "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": total["ms"], "kernel_ms": total["ms"], "eager_ms": total["eager_ms"],
             "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
-            "bound_by": _bound(total["bytes"], total["flops"], dev)[1],
+            "bound_by": _bound(total["bytes"], total["flops"], dev, dtype)[1],
             "library_ms": total["library_ms"],
             "timed_at": "sum over x " + ", ".join(str(r["x"]) for r in rows),
             "layouts": [r["layout"] for r in rows]}
@@ -405,15 +455,36 @@ def phase_kernels(dev: dict) -> dict:
     # the limited-fov setting: K2 with the masked window at every scale
     k2_fov = [timed("K2", (s, s), cs, cs // 2, shift, 40 + i)
               for i, (s, cs, shift) in enumerate(VIGOR_SCALES)]
-    emit({"phase": "kernel_times", "card": dev["nvidia_smi"], "shapes": shapes})
+    # bfloat16 at the shapes of the bf16 main paths (train_options, cli):
+    # VIGOR's six K1 scales; KITTI's and Oxford's scales (K1 where Cg == Cs)
+    bf16 = {"VIGOR": [_time_matching("K1", BATCH, (s, s), cs, cs, shift, range(20), "first", dev,
+                                     70 + i, torch.bfloat16)
+                      for i, (s, cs, shift) in enumerate(VIGOR_SCALES)]}
+    for preset in ("KITTI", "OxfordRobotCar"):
+        pc = cvm.PRESETS[preset]
+        bf16[preset] = [_time_matching("K1" if cg == cs else "K2", BATCH, (side, side), cs, cg,
+                                       shift, range(pc.bins), pc.window, dev, 80 + i,
+                                       torch.bfloat16)
+                        for i, (side, cs, cg, shift) in enumerate(preset_scales(pc))]
+    emit({"phase": "kernel_times", "card": dev["nvidia_smi"], "shapes": shapes,
+          "bfloat16": bf16})
 
     def summary(name, rows, kernel, replaces):
-        return _summary(name, rows, kernel, replaces, max_err, dev)
+        return _summary(name, rows, replaces, dev)
+
+    bf16_rows = []
+    for preset, rows in bf16.items():
+        for kernel in ("K1", "K2"):
+            mine = [r for r in rows if r["kernel"] == kernel]
+            if mine:
+                bf16_rows.append(summary(f"{KERNEL_NAMES[kernel]} ({kernel}), {preset} bf16",
+                                         mine, kernel, K1_REPLACES if kernel == "K1"
+                                         else K2_REPLACES))
 
     # K2 in two rows: its one launch per ori-prior forward (the full-bin
     # bottleneck stack) and its six per fov=180 forward (masked windows), so
     # that each row's ms and launches describe the same work
-    return {"checks": checks, "shapes": shapes, "max_err": max_err,
+    return {"checks": checks, "shapes": shapes, "bf16_shapes": bf16, "bf16_summary": bf16_rows,
             "summary": [summary("matching_epilogue (K1)", k1, "K1", K1_REPLACES),
                         summary("matching_scores (K2), ori-prior bottleneck", k2, "K2",
                                 K2_REPLACES),
@@ -495,14 +566,15 @@ def phase_model(dev: dict) -> dict:
     # the main path, one setting at a time, with every launch counter at 0
     # just before it and read just after
     poses, steps, layout_steps = [], [], []
-    launches = dict.fromkeys(MC.LAUNCHES, 0)
+    launches = dict.fromkeys(MC.launch_counts(), 0)
     for kw, _ in settings:
         MC.reset_launch_counts()
         poses.append(model.predict_batch(grd, sat, return_heatmap=True, **kw))
-        steps.append((MC.LAUNCHES["matching_epilogue"], MC.LAUNCHES["matching_scores"]))
-        layout_steps.append({k: n for k, n in MC.LAUNCHES_BY_LAYOUT.items() if n})
+        counts = MC.launch_counts()
+        steps.append((counts["matching_epilogue"], counts["matching_scores"]))
+        layout_steps.append({k: n for k, n in MC.launch_counts("layout").items() if n})
         for k in launches:
-            launches[k] += MC.LAUNCHES[k]
+            launches[k] += counts[k]
     if steps != [w for _, w in settings]:
         raise AssertionError(f"kernel launches (K1, K2) per setting {steps}, "
                              f"want {[w for _, w in settings]}")
@@ -559,13 +631,13 @@ def phase_nano_reference() -> dict:
     grd, sat = _images(cpu.cfg, 4, seed=5)
     # cuDNN's and the CPU's convolutions sum in other orders
     tol = {"logits": 1e-4, "heatmap": 1e-7, "ori": 1e-4, "stacks": 1e-4}
-    before = sum(MC.LAUNCHES.values())
+    before = sum(MC.launch_counts().values())
     errs = {}
     for kw in (dict(ori_noise=180.0), dict(ori_noise=36.0, fov=180.0)):
         out, r = gpu.forward_readout(grd, sat, **kw)
         ref, rr = cpu.forward_readout(grd, sat, **kw)
         errs[json.dumps(kw)] = _compare(f"NANO {kw}", out, ref, r, rr, tol)
-    n = sum(MC.LAUNCHES.values()) - before
+    n = sum(MC.launch_counts().values()) - before
     if n != 13:    # 6 + (6 + the full-bin bottleneck stack)
         raise AssertionError(f"NANO launched the kernels {n} times, want 13")
     info = {"phase": "nano_reference", "tolerance": tol, "max_abs_err": errs}
@@ -609,8 +681,8 @@ def phase_model_presets(dev: dict) -> dict:
             prior = kw["ori_noise"] < 180
             MC.reset_launch_counts()
             poses = model.predict_batch(grd, sat, return_heatmap=True, **kw)
-            launches = dict(MC.LAUNCHES)
-            by_layout = {f"{k} {lay}": n for (k, lay), n in MC.LAUNCHES_BY_LAYOUT.items() if n}
+            launches = MC.launch_counts()
+            by_layout = {f"{k} {lay}": n for (k, lay), n in MC.launch_counts("layout").items() if n}
             want = {"matching_epilogue": n_k1, "matching_scores": 6 - n_k1 + prior}
             if launches != want:
                 raise AssertionError(f"{preset} {kw}: launches {launches}, want {want}")
@@ -694,7 +766,7 @@ def _compare_steps(tag, got, want, got_parts, want_parts, tol) -> dict:
         errs[k] = abs(a - b) / abs(b)
     grad_norm = want_parts["grad_norm"].item()
     theirs = dict(want.model.named_parameters())
-    worst, n = 0.0, 0
+    worst, worst_rel, n = 0.0, 0.0, 0
     for k, p in got.model.named_parameters():
         q = theirs[k]
         if (p.grad is None) != (q.grad is None):
@@ -706,6 +778,7 @@ def _compare_steps(tag, got, want, got_parts, want_parts, tol) -> dict:
         if not d <= lim:
             raise AssertionError(f"{tag}: gradient of {k} differs by {d} > {lim}")
         worst, n = max(worst, d / lim), n + 1
+        worst_rel = max(worst_rel, d / max(q.grad.float().norm().item(), 1e-30))
     theirs = dict(want.model.named_buffers())
     bn_err = 0.0
     for k, v in got.model.named_buffers():
@@ -714,7 +787,8 @@ def _compare_steps(tag, got, want, got_parts, want_parts, tol) -> dict:
                                        msg=lambda m, k=k: f"{tag}: {k}: {m}")
             bn_err = max(bn_err, (v.cpu() - theirs[k].cpu()).abs().max().item())
     return {"loss_parts_rel_err": errs, "gradient_tensors": n,
-            "worst_gradient_err_over_limit": worst, "bn_max_abs_err": bn_err}
+            "worst_gradient_err_over_limit": worst, "worst_gradient_rel_err": worst_rel,
+            "bn_max_abs_err": bn_err}
 
 
 def phase_train(dev: dict, out: Path | None) -> dict:
@@ -737,15 +811,15 @@ def phase_train(dev: dict, out: Path | None) -> dict:
     MC.reset_launch_counts()
     k_parts = k_step(state, _normalized(data))
     torch.cuda.synchronize()
-    k_layouts = {k: n for k, n in MC.LAUNCHES_BY_LAYOUT.items() if n}
+    k_layouts = {k: n for k, n in MC.launch_counts("layout").items() if n}
     p_parts = TLOOP.make_train_step(cfg, matching_impl="plain")(plain, _normalized(data))
     torch.cuda.synchronize()
     want_layouts = {("matching_epilogue", "tile"): 3, ("matching_epilogue", "warp"): 3}
     if k_layouts != want_layouts:
         raise AssertionError(f"VIGOR train step: launches by layout {k_layouts}, "
                              f"want {want_layouts}")
-    if sum(MC.LAUNCHES.values()) != 6:
-        raise AssertionError(f"the plain step launched a kernel: {MC.LAUNCHES}")
+    if sum(MC.launch_counts().values()) != 6:
+        raise AssertionError(f"the plain step launched a kernel: {MC.launch_counts()}")
     check = _compare_steps("VIGOR train step kernel vs plain", state, plain, k_parts, p_parts,
                            TRAIN_TOL)
     del plain, p_parts
@@ -766,7 +840,7 @@ def phase_train(dev: dict, out: Path | None) -> dict:
     b.record()
     b.synchronize()
     wall_s = time.perf_counter() - w0
-    launches = dict(MC.LAUNCHES)
+    launches = MC.launch_counts()
     if launches != {"matching_epilogue": 6 * TRAIN_TIMED, "matching_scores": 0}:
         raise AssertionError(f"{TRAIN_TIMED} train steps launched {launches}")
     step_ms = a.elapsed_time(b) / TRAIN_TIMED
@@ -814,7 +888,7 @@ def phase_train_nano() -> dict:
     MC.reset_launch_counts()
     g_parts = step(gpu, {k: v.cuda() for k, v in data.items()})
     torch.cuda.synchronize()
-    launches = dict(MC.LAUNCHES)
+    launches = MC.launch_counts()
     if launches != {"matching_epilogue": 4, "matching_scores": 2}:
         raise AssertionError(f"NANO train step launched {launches}, want K1 4 and K2 2")
     c_parts = step(cpu, data)
@@ -889,6 +963,229 @@ def _train_profile(state, batch, gen, dev: dict, out: Path | None) -> dict:
     info = {"phase": "train_profile", "card": dev["nvidia_smi"], "device_ms": split,
             "top": [{"kernel": k[:90], "ms": ms, "launches": c} for k, ms, c in rows[:15]]}
     emit(info)
+    return info
+
+
+# train_options: the remat steps against the step without remat (float32,
+# drop-connect on): the same forward, so the loss parts agree to rounding;
+# cuDNN's weight gradients may sum in another order on each run
+REMAT_TOL = {"loss_rtol": 1e-6, "grad_rel": 1e-4, "grad_abs": 1e-7, "bn": 1e-6}
+OPTION_STEPS = 3          # timed steps per configuration, after one warm-up
+# the bf16 VIGOR step through K1 against the same bf16 step through the
+# plain versions, cuDNN deterministic: the kernel's and the plain version's
+# outputs differ by up to one bf16 rounding (BF16_TOL) and the bf16
+# backward carries that on.  Set from the kernel-vs-plain readings on an
+# H100 (phase train_options_bf16_readings): loss parts <= 1.6e-4 relative
+# (grad_norm; the loss 1.9e-6); per gradient tensor up to 0.68 of its own
+# 2-norm (the encoders' BN biases, whose gradients are near zero and pure
+# bf16 noise: 50-280 against f32 norms under 0.005) and up to 5.7e-3 of the
+# step's gradient norm; BN statistics equal.
+BF16_TRAIN_TOL = {"loss_rtol": 1e-3, "grad_rel": 5e-2, "grad_abs": 2e-2, "bn": 1e-6}
+
+
+def _step_distance(got, want, got_parts, want_parts) -> dict:
+    """How far one step lies from another from the same start: each loss
+    part, relative; the five gradient tensors furthest off relative to their
+    own 2-norm ([distance, norm]); the largest distance over the step's
+    gradient norm."""
+    theirs = dict(want.model.named_parameters())
+    dist = {k: ((p.grad.float() - theirs[k].grad.float()).norm().item(),
+                theirs[k].grad.float().norm().item())
+            for k, p in got.model.named_parameters() if p.grad is not None}
+    worst = sorted(dist, key=lambda k: dist[k][0] / max(dist[k][1], 1e-30), reverse=True)[:5]
+    return {"loss_parts_rel": {k: abs(got_parts[k].item() - v.item()) / abs(v.item())
+                               for k, v in want_parts.items()},
+            "worst_gradient_rel": {k: list(dist[k]) for k in worst},
+            "worst_gradient_over_grad_norm": max(d for d, _ in dist.values())
+            / want_parts["grad_norm"].item()}
+
+
+def _timed_steps(state, step, batch, gen) -> dict:
+    """Step ms (CUDA events over OPTION_STEPS steps after one warm-up), the
+    peak memory allocated during them, and one more step under
+    ``torch.profiler``: the card's busy ms and the kernels it ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step(state, batch, gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    busy_ms, _ = _busy_ms(prof.events())
+    kernels = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    parts = [step(state, batch, gen) for _ in range(OPTION_STEPS)]
+    b.record()
+    b.synchronize()
+    if not all(math.isfinite(v.item()) for p in parts for v in p.values()):
+        raise AssertionError(f"non-finite loss parts: {parts}")
+    step_ms = a.elapsed_time(b) / OPTION_STEPS
+    return {"step_ms": step_ms,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "peak_over_resident_gib": (torch.cuda.max_memory_allocated() - resident) / 2 ** 30,
+            "profiled_busy_ms": busy_ms, "profiled_wall_ms": prof_wall,
+            "device_ops_per_step": kernels, "idle_share": 1 - busy_ms / step_ms}
+
+
+def _dtype_launches() -> dict:
+    return {f"{k} {d}": n for (k, d), n in MC.launch_counts("dtype").items() if n}
+
+
+def _bf16_layout_launches() -> dict:
+    return {f"{k} {lay}": n for (k, lay, d), n in MC.launch_counts("layout", "dtype").items()
+            if n and d == "bfloat16"}
+
+
+def _bf16_launches(cfg, steps: int = 1, batch: int = BATCH) -> dict:
+    """The bf16 launches by (kernel, layout) of ``steps`` train steps of
+    ``cfg`` at ``batch`` (forwards without a prior): K1 where Cg == Cs, K2
+    elsewhere, each in the layout its wrapper picks at that scale."""
+    want: dict = {}
+    for side, cs, cg, _ in preset_scales(cfg):
+        kernel = KERNEL_NAMES["K1" if cg == cs else "K2"]
+        x = torch.empty((batch, side, side, cs), dtype=torch.bfloat16, device="cuda")
+        key = f"{kernel} {MC.pick_layout(kernel, x, cg, cfg.bins)}"
+        want[key] = want.get(key, 0) + steps
+    return want
+
+
+def phase_train_options(dev: dict) -> dict:
+    """The training options on the VIGOR train step at full width, batch 8,
+    TF32 off, from one seeded state with calibrated BN statistics: (a) one
+    bf16 step through K1 against the same bf16 step through the plain
+    versions (the bar from the float32 step); (b) remat 'all', 'encoder'
+    and 'decoder' against no remat, drop-connect on; (c) three steps of
+    bf16 parameters with the float32 master; (d) step ms and peak memory of
+    each configuration."""
+    import copy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cvm.VIGOR
+    t_phase = time.perf_counter()
+    base = _calibrated_state(cfg, seed=0)
+    data = _normalized(_train_batch(cfg, BATCH, seed=2, device="cuda"))
+    info = {"phase": "train_options", "card": dev["nvidia_smi"], "preset": cfg.name,
+            "batch": BATCH}
+
+    # (a) bf16 through K1 against bf16 through the plain versions, cuDNN
+    # deterministic: the two steps differ by the kernel's outputs alone
+    ref, plain, kern = (copy.deepcopy(base) for _ in range(3))
+    torch.backends.cudnn.deterministic = True
+    r_parts = TLOOP.make_train_step(cfg, matching_impl="plain")(ref, data)
+    p_parts = TLOOP.make_train_step(cfg, matching_impl="plain", compute_dtype="bfloat16")(
+        plain, data)
+    MC.reset_launch_counts()
+    k_parts = TLOOP.make_train_step(cfg, compute_dtype="bfloat16")(kern, data)
+    torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = False
+    readings = _step_distance(kern, plain, k_parts, p_parts)
+    emit({"phase": "train_options_bf16_readings", "kernel_vs_plain": readings,
+          "bf16_vs_float32": _step_distance(plain, ref, p_parts, r_parts)})
+    layouts = _bf16_layout_launches()
+    by_dtype = _dtype_launches()
+    want_bf16 = _bf16_launches(cfg)
+    if layouts != want_bf16 or sum(by_dtype.values()) != sum(want_bf16.values()):
+        raise AssertionError(f"bf16 {cfg.name} step launched {by_dtype} {layouts}, "
+                             f"want {want_bf16}")
+    info["bf16_kernel_vs_plain"] = {
+        **_compare_steps(f"{cfg.name} bf16 step kernel vs plain", kern, plain, k_parts, p_parts,
+                         BF16_TRAIN_TOL),
+        "tolerance": BF16_TRAIN_TOL, "readings": readings,
+        "launches_by_layout": layouts, "launches_by_dtype": by_dtype,
+        "loss": {k: v.item() for k, v in k_parts.items()},
+        "loss_float32": {k: v.item() for k, v in r_parts.items()}}
+    bf16_launches = by_dtype.get("matching_epilogue bfloat16", 0)
+    del ref, plain, kern
+    torch.cuda.empty_cache()
+
+    # (b) each remat scope against no remat, drop-connect on, float32
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    want = copy.deepcopy(base)
+    w_parts = TLOOP.make_train_step(cfg)(want, data, gen)
+    info["remat"] = {}
+    for scope in ("all", "encoder", "decoder"):
+        got = copy.deepcopy(base)
+        g2 = torch.Generator(device="cuda").manual_seed(7)
+        g_parts = TLOOP.make_train_step(cfg, remat=scope)(got, data, g2)
+        torch.cuda.synchronize()
+        if not torch.equal(g2.get_state(), gen.get_state()):
+            raise AssertionError(f"remat {scope}: the generator ends elsewhere")
+        info["remat"][scope] = _compare_steps(f"remat {scope} vs none", got, want, g_parts,
+                                              w_parts, REMAT_TOL)
+        del got
+    del want
+    torch.cuda.empty_cache()
+
+    # (c) bf16 parameters with the float32 master: three steps through K1
+    state = TLOOP.train_state_from_torch(base.model.state_dict(), cfg, param_dtype="bfloat16")
+    step = TLOOP.make_train_step(cfg, compute_dtype="bfloat16")
+    opt = state.optimizer
+    MC.reset_launch_counts()
+    losses = [step(state, data, gen)["loss"].item() for _ in range(2)]
+    before = [p.detach().clone() for p in opt.params]
+    losses.append(step(state, data, gen)["loss"].item())
+    torch.cuda.synchronize()
+    master_launches = _bf16_layout_launches()
+    if master_launches != _bf16_launches(cfg, steps=3):
+        raise AssertionError(f"three bf16-parameter steps launched {master_launches}")
+    bf16_launches += MC.launch_counts("dtype")["matching_epilogue", "bfloat16"]
+    # the resident parameter is what optax.apply_updates leaves, bf16(p + (m - p))
+    # in float32: the rounded master, except where m - p rounds (a parameter
+    # that moved far relative to its size, e.g. across zero): there the sum
+    # is off m by a float32 ulp of p, and its rounding may leave bf16(m)
+    formula, exact, off, worst = 0, 0, 0, 0.0
+    for p, m, q in zip(opt.params, opt.master, before):
+        qf = q.float()
+        formula += torch.equal(p, (qf + (m - qf)).to(torch.bfloat16))
+        rounded = m.to(torch.bfloat16)
+        exact += torch.equal(p, rounded)
+        miss = p != rounded
+        off += int(miss.sum())
+        if miss.any():
+            ulp = (rounded.float().abs() * 2.0 ** -7)[miss]
+            worst = max(worst, ((p.float() - rounded.float()).abs()[miss] / ulp).max().item())
+    if formula != len(opt.params) or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"bf16 params: {formula} of {len(opt.params)} follow "
+                             f"bf16(p + (m - p)); {off} elements off the rounded master by "
+                             f"up to {worst} ulp; losses {losses}")
+    info["bf16_params"] = {"losses": losses, "params": len(opt.params),
+                           "with_gradient": sum(p.grad is not None for p in opt.params),
+                           "resident_follows_apply_updates": formula,
+                           "resident_equals_rounded_master": exact,
+                           "elements_off_rounded_master": off, "worst_off_ulp": worst,
+                           "elements": sum(p.numel() for p in opt.params)}
+    del state, step, opt
+    torch.cuda.empty_cache()
+
+    # (d) step ms and peak memory per configuration, drop-connect on
+    configs = {"float32": ({}, None), "bf16": (dict(compute_dtype="bfloat16"), None),
+               "bf16+bf16_params": (dict(compute_dtype="bfloat16"), "bfloat16"),
+               "remat_all": (dict(remat="all"), None),
+               "remat_encoder": (dict(remat="encoder"), None),
+               "remat_decoder": (dict(remat="decoder"), None)}
+    info["timing"] = {}
+    MC.reset_launch_counts()
+    for name, (kw, param_dtype) in configs.items():
+        state = (TLOOP.train_state_from_torch(base.model.state_dict(), cfg,
+                                              param_dtype=param_dtype)
+                 if param_dtype else copy.deepcopy(base))
+        info["timing"][name] = _timed_steps(state, TLOOP.make_train_step(cfg, **kw), data, gen)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    bf16_launches += MC.launch_counts("dtype")["matching_epilogue", "bfloat16"]
+    info["launches_bf16_k1"] = bf16_launches
+    info["seconds"] = time.perf_counter() - t_phase
+    emit(info)
+    del base, data
+    gc.collect()
+    torch.cuda.empty_cache()
     return info
 
 
@@ -1048,7 +1345,7 @@ def phase_data(dev: dict, roots: dict) -> dict:
             MC.reset_launch_counts()
         run = _steps(state, step, fed(r), gen, profiled=False)
         if r == 0:
-            launches = dict(MC.LAUNCHES)
+            launches = MC.launch_counts()
             if launches != {"matching_epilogue": 6 * FED_STEPS, "matching_scores": 0}:
                 raise AssertionError(f"{FED_STEPS} fed steps launched {launches}")
             info["launches"] = launches
@@ -1288,7 +1585,8 @@ def _restored_equals_file(trainer) -> dict:
         if not torch.equal(v.cpu(), saved["model"][k]):
             raise AssertionError(f"resume: {k} differs from the checkpoint")
         n += 1
-    live = state.optimizer.state_dict()["state"]
+    live_opt = state.optimizer.state_dict()
+    live = live_opt["state"]
     if live.keys() != saved["optimizer"]["state"].keys() or not live:
         raise AssertionError("resume: Adam's state is not the checkpoint's")
     for i, s in live.items():
@@ -1296,12 +1594,20 @@ def _restored_equals_file(trainer) -> dict:
             if not torch.equal(v.cpu(), saved["optimizer"]["state"][i][k]):
                 raise AssertionError(f"resume: Adam {k} of parameter {i} differs")
             n += 1
+    # bf16 parameters: the float32 master, in parameter order
+    masters = list(zip(live_opt.get("master", []), saved["optimizer"].get("master", []),
+                       strict=True))
+    for i, (a, b) in enumerate(masters):
+        if a.dtype != torch.float32 or not torch.equal(a.cpu(), b):
+            raise AssertionError(f"resume: the master of parameter {i} differs")
+        n += 1
     if state.step != saved["step"]:
         raise AssertionError(f"resume: step {state.step} vs {saved['step']}")
     if not all(p.is_contiguous(memory_format=torch.channels_last)
                for p in state.model.parameters() if p.dim() == 4):
         raise AssertionError("resume: parameters left channels_last")
-    return {"step": state.step, "tensors_equal": n}
+    return {"step": state.step, "tensors_equal": n, "masters_equal": len(masters),
+            "param_dtypes": sorted({str(p.dtype)[6:] for p in state.model.parameters()})}
 
 
 # the VIGOR eval settings of the ``cli`` phase and the kernel launches
@@ -1317,8 +1623,103 @@ CLI_PROB_TOL = 1e-6
 
 
 def _launches() -> dict:
-    return {"K1": MC.LAUNCHES["matching_epilogue"], "K2": MC.LAUNCHES["matching_scores"],
-            "by_layout": {f"{k} {lay}": n for (k, lay), n in MC.LAUNCHES_BY_LAYOUT.items() if n}}
+    counts = MC.launch_counts()
+    return {"K1": counts["matching_epilogue"], "K2": counts["matching_scores"],
+            "by_layout": {f"{k} {lay}": n for (k, lay), n in MC.launch_counts("layout").items() if n},
+            "by_dtype": _dtype_launches(), "bf16_by_layout": _bf16_layout_launches()}
+
+
+def write_b0(path: str, seed: int = 0) -> str:
+    """A raw EfficientNet-B0 state_dict in the release file's keys, from the
+    port's seeded encoder (``--pretrained_b0`` reads it)."""
+    from ccvpe_torch.nn.efficientnet import EfficientNet
+    from ccvpe_torch.nn.layers import init_uniform_
+
+    net = init_uniform_(EfficientNet("b0"), torch.Generator().manual_seed(seed))
+    torch.save(net.state_dict(), path)
+    return path
+
+
+def _options_cli(tmp: str, roots: dict, common: list, probe) -> dict:
+    """The training options through the CLIs: ``train_VIGOR --bf16
+    --bf16_params --remat --pretrained_b0`` two steps, a checkpoint and a
+    resumed epoch checked bit for bit; ``api.load_model`` of that
+    checkpoint directory through the kernels against the plain versions;
+    ``train_KITTI --device_augment --bf16`` and ``train_OxfordRobotCar
+    --bf16`` two steps each (their validation runs in float32)."""
+    from ccvpe_torch import train_KITTI, train_OxfordRobotCar, train_VIGOR
+
+    b0 = write_b0(f"{tmp}/b0.pth")
+    ck = f"{tmp}/options_ckpt"
+    argv = common + ["--dataset_root", roots["vigor"], "--steps_per_epoch", "2",
+                     "--checkpoint_dir", ck, "--results_dir", f"{tmp}/options_res",
+                     "--keep_checkpoints", "1", "--bf16", "--bf16_params", "--remat",
+                     "--pretrained_b0", b0]
+    out = {}
+    before = len(probe.resumes)
+    out["vigor_first"] = _train_cli("VIGOR options train", train_VIGOR.main,
+                                    argv + ["--epochs", "1"], probe, 2)
+    out["vigor_resumed"] = _train_cli("VIGOR options resume", train_VIGOR.main,
+                                      argv + ["--epochs", "2", "--resume"], probe, 2)
+    if len(probe.resumes) != before + 1:
+        raise AssertionError("the options run did not resume")
+    out["resume_check"] = probe.resumes[-1]
+    if out["resume_check"]["param_dtypes"] != ["bfloat16"] or not out["resume_check"][
+            "masters_equal"]:
+        raise AssertionError(f"options resume: {out['resume_check']}")
+    # bf16 launches: the train steps' forwards only (validation runs in float32)
+    for run in ("vigor_first", "vigor_resumed"):
+        want = _bf16_launches(cvm.VIGOR, steps=2)
+        if out[run]["launches"]["bf16_by_layout"] != want:
+            raise AssertionError(f"{run}: bf16 launches {out[run]['launches']}, want {want}")
+    probe.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the bf16-parameter checkpoint served through load_model
+    model = api.load_model(ck, preset="VIGOR")
+    plain = api.CVMModel(model.cfg, model.net, model.device, matching_impl="plain")
+    grd, sat = _images(model.cfg, BATCH, seed=9)
+    served = {}
+    n_k1 = sum(cg == cs for _, cs, cg, _ in preset_scales(model.cfg))
+    for kw, want in ((dict(ori_noise=180.0), (n_k1, 6 - n_k1)),
+                     (dict(ori_noise=36.0), (n_k1, 7 - n_k1))):
+        MC.reset_launch_counts()
+        poses = model.predict_batch(grd, sat, **kw)
+        got = tuple(MC.launch_counts().values())
+        if got != want:
+            raise AssertionError(f"load_model {kw}: launches {got}, want {want}")
+        heading = 0.0
+        for p, q in zip(poses, plain.predict_batch(grd, sat, **kw)):
+            if (p.row, p.col) != (q.row, q.col) or not np.isfinite(p.orientation_deg):
+                raise AssertionError(f"load_model {kw}: {p} vs {q}")
+            heading = max(heading, abs((p.orientation_deg - q.orientation_deg + 180) % 360
+                                       - 180))
+        if heading > HEADING_TOL_DEG:
+            raise AssertionError(f"load_model {kw}: heading differs by {heading} deg")
+        served[json.dumps(kw)] = {"launches": got, "heading_err_deg": heading,
+                                  "rows": [p.row for p in poses]}
+    out["load_model"] = served
+    del model, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # KITTI and Oxford in bf16: K2 (and KITTI's K1 at 256^2 x 32) inside a model
+    for preset, main, root_flags in (
+            ("KITTI", train_KITTI.main, ["--dataset_root", roots["kitti"], "--device_augment"]),
+            ("OxfordRobotCar", train_OxfordRobotCar.main, ["--grd_image_root", roots["oxford"]])):
+        run = _train_cli(f"{preset} bf16 train", main, common + root_flags + [
+            "--epochs", "1", "--steps_per_epoch", "2", "--bf16", "--keep_checkpoints", "1",
+            "--checkpoint_dir", f"{tmp}/{preset}_bf16_ckpt",
+            "--results_dir", f"{tmp}/{preset}_bf16_res"], probe, 2)
+        want = _bf16_launches(cvm.PRESETS[preset], steps=2)
+        if run["launches"]["bf16_by_layout"] != want:
+            raise AssertionError(f"{preset} bf16: launches {run['launches']}, want {want}")
+        out[preset] = run
+        probe.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def _readouts(probe) -> dict:
@@ -1498,6 +1899,9 @@ def phase_cli(dev: dict, roots: dict) -> dict:
             info[preset] = {"train": trained, "eval": evaluated}
             gc.collect()
             torch.cuda.empty_cache()
+
+        # 4. the training options
+        info["options"] = _options_cli(tmp, roots, common, probe)
     info["seconds"] = time.perf_counter() - t_phase
     emit(info)
     return info
@@ -1557,8 +1961,206 @@ def _profile(model, grd, sat, out: Path | None) -> dict:
                     for k, ms, c in rows[:15]]}
 
 
+SERVE_KEYS = ((180.0, 360.0), (36.0, 360.0), (180.0, 180.0))
+SERVE_CLIENTS, SERVE_PER_CLIENT = 16, 6
+SERVE_PROB_TOL = 1e-6
+SERVE_TIMEOUT_S = 2.0          # the server's request_timeout (the 408 case)
+SERVE_MAX_BODY = 16 << 20      # the server's max_body_bytes (the 413 case)
+
+
+def _png_b64(arr: np.ndarray) -> str:
+    import base64
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="PNG", compress_level=1)
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def _client_load(url: str, bodies: list, clients: int) -> tuple[list, float]:
+    """POST each body to ``url``/predict from ``clients`` threads: (status,
+    answer, seconds) per request, and the wall seconds of the whole load."""
+    import concurrent.futures
+    import urllib.error
+    import urllib.request
+
+    def post(body):
+        req = urllib.request.Request(url + "/predict", data=body,
+                                     headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, json.loads(r.read()), time.perf_counter() - t0
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read()), time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(clients) as pool:
+        t0 = time.perf_counter()
+        out = list(pool.map(post, bodies))
+        return out, time.perf_counter() - t0
+
+
+def _raw_status(port: int, head: bytes, body: bytes = b"") -> int:
+    """Send ``head`` and ``body`` on a fresh socket; the HTTP status the
+    server answers with."""
+    import socket
+
+    with socket.create_connection(("127.0.0.1", port), timeout=30) as sock:
+        sock.sendall(head + body)
+        data = b""
+        while b"\r\n" not in data:
+            chunk = sock.recv(4096)
+            if not chunk:
+                break
+            data += chunk
+    return int(data.split(b" ", 2)[1])
+
+
+def phase_serve(dev: dict, model: api.CVMModel) -> dict:
+    """The HTTP pose service (``ccvpe_torch.serve``) on 127.0.0.1 with the
+    seeded, BN-calibrated VIGOR model of phase ``model``, batch 8,
+    ``max_wait_ms`` 5: 96 ``/predict`` requests from 16 client threads (in
+    a process of their own) over three (ori_noise, fov) keys, PNGs at model
+    size and a few at raw size;
+    every answer against ``predict_batch`` through the plain versions; a
+    413 and a 408; then the same load under ``torch.profiler`` for the
+    card's idle share."""
+    import concurrent.futures
+    import multiprocessing
+    import threading
+
+    from ccvpe_torch import serve
+    from ccvpe_torch.api import _prepare
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = model.cfg
+    rng = np.random.default_rng(40)
+    pairs = []
+    for i in range(24):
+        raw = i % 8 == 7      # three pairs at a raw size: the service resizes them
+        ghw, shw = ((512, 1024), (640, 640)) if raw else (cfg.grd_hw, cfg.sat_hw)
+        grd = rng.integers(0, 256, (*ghw, 3), dtype=np.uint8)
+        sat = rng.integers(0, 256, (*shw, 3), dtype=np.uint8)
+        pairs.append((grd, sat, _png_b64(grd), _png_b64(sat)))
+    n = SERVE_CLIENTS * SERVE_PER_CLIENT
+    requests = [(pairs[i % len(pairs)], SERVE_KEYS[i % len(SERVE_KEYS)]) for i in range(n)]
+
+    service = serve.PoseService(model, cfg.name, batch=BATCH, max_wait_ms=5.0)
+    srv = serve.build_server(service, "127.0.0.1", 0, max_body_bytes=SERVE_MAX_BODY,
+                             request_timeout=SERVE_TIMEOUT_S)
+    port = srv.server_address[1]
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{port}"
+
+    bodies = [json.dumps({"grd": g64, "sat": s64, "ori_noise": noise, "fov": fov}).encode()
+              for (_, _, g64, s64), (noise, fov) in requests]
+    # the clients run in a process of their own, as a deployment's would:
+    # their JSON and sockets do not take the server's interpreter lock
+    clients = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+
+    def load():
+        out, wall = clients.submit(_client_load, url, bodies, SERVE_CLIENTS).result()
+        torch.cuda.synchronize()
+        return out, wall
+
+    def post(i):
+        return _client_load(url, [bodies[i]], 1)[0][0]
+
+    info = {"phase": "serve", "card": dev["nvidia_smi"], "preset": cfg.name, "batch": BATCH,
+            "max_wait_ms": 5.0, "clients": SERVE_CLIENTS, "requests": n,
+            "keys": [list(k) for k in SERVE_KEYS]}
+    try:
+        # warm every key's batcher (the first forward at a shape picks cuDNN's algorithms)
+        for k in range(len(SERVE_KEYS)):
+            post(k)
+        before = {k: (b.dispatches, b.items_served) for k, b in service.batchers.items()}
+        rejections0 = service.metrics()["rejections"]
+        MC.reset_launch_counts()
+        answers, wall = load()
+        launches = MC.launch_counts()
+        disp = {k: b.dispatches - before[k][0] for k, b in service.batchers.items()}
+        served = {k: b.items_served - before[k][1] for k, b in service.batchers.items()}
+        metrics = service.metrics()
+        codes = [c for c, _, _ in answers]
+        if codes.count(200) + codes.count(503) != n or not codes.count(200):
+            raise AssertionError(f"serve: status codes {sorted(set(codes))}")
+        # every answer against predict_batch through the plain versions
+        plain = api.CVMModel(cfg, model.net, model.device, matching_impl="plain")
+        worst_prob, worst_heading, checked = 0.0, 0.0, 0
+        for key in SERVE_KEYS:
+            idx = [i for i in range(n) if requests[i][1] == key and answers[i][0] == 200]
+            for lo in range(0, len(idx), BATCH):
+                chunk = idx[lo:lo + BATCH]
+                grd = np.stack([_prepare(requests[i][0][0], cfg.grd_hw) for i in chunk])
+                sat = np.stack([_prepare(requests[i][0][1], cfg.sat_hw) for i in chunk])
+                ref = plain.predict_batch(grd, sat, ori_noise=key[0], fov=key[1])
+                for i, q in zip(chunk, ref):
+                    got = answers[i][1]
+                    if (got["row"], got["col"]) != (q.row, q.col):
+                        raise AssertionError(f"serve {key}: {got} vs plain {q}")
+                    worst_prob = max(worst_prob, abs(got["probability"] - q.probability))
+                    worst_heading = max(worst_heading, abs(
+                        (got["orientation_deg"] - q.orientation_deg + 180) % 360 - 180))
+                    checked += 1
+        if not (worst_prob <= SERVE_PROB_TOL and worst_heading <= HEADING_TOL_DEG):
+            raise AssertionError(f"serve: probability {worst_prob}, heading {worst_heading}")
+        # the kernels each key's forward launches (VIGOR: K1 x6 at the full
+        # panorama, K2 for the prior's full-bin stack, K2 x6 at fov=180)
+        n_k1 = sum(cg == cs for _, cs, cg, _ in preset_scales(cfg))
+        full = disp[SERVE_KEYS[0]] + disp[SERVE_KEYS[1]]
+        k1 = n_k1 * full
+        k2_prior, k2_fov = disp[SERVE_KEYS[1]], 6 * disp[SERVE_KEYS[2]]
+        k2 = (6 - n_k1) * full + k2_prior + k2_fov
+        if launches != {"matching_epilogue": k1, "matching_scores": k2}:
+            raise AssertionError(f"serve launches {launches}, dispatches {disp}")
+
+        # a 413 (from the header alone) and a 408 (a body that stalls)
+        big = _raw_status(port, f"POST /predict HTTP/1.1\r\nHost: x\r\nContent-Length: "
+                                f"{SERVE_MAX_BODY + 1}\r\n\r\n".encode())
+        t0 = time.perf_counter()
+        stalled = _raw_status(port, b"POST /predict HTTP/1.1\r\nHost: x\r\n"
+                                    b"Content-Length: 1000\r\n\r\n", b'{"grd": "')
+        stall_s = time.perf_counter() - t0
+        if (big, stalled) != (413, 408):
+            raise AssertionError(f"serve: oversized body {big}, stalled body {stalled}")
+
+        # the card's idle share under the same load: busy device ms over wall ms
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, prof_wall = load()
+        busy_ms, span_ms = _busy_ms(prof.events())
+        lat = sorted(t for c, _, t in answers if c == 200)
+        info.update({
+            "seconds": wall, "requests_per_s": codes.count(200) / wall,
+            "client_latency_ms": {"p50": lat[len(lat) // 2] * 1e3,
+                                  "p95": lat[min(len(lat) - 1, int(len(lat) * 0.95))] * 1e3,
+                                  "max": lat[-1] * 1e3},
+            "server_metrics": metrics, "status_503": codes.count(503),
+            "rejections": metrics["rejections"] - rejections0,
+            "dispatches": {json.dumps(list(k)): v for k, v in disp.items()},
+            "mean_batch_fill": sum(served.values()) / max(1, sum(disp.values())) / BATCH,
+            "launches": {**launches, "matching_scores_prior": k2_prior,
+                         "matching_scores_fov": k2_fov},
+            "checked_against_plain": checked, "prob_max_abs_err": worst_prob,
+            "heading_err_deg": worst_heading, "prob_tolerance": SERVE_PROB_TOL,
+            "status_oversized": big, "status_stalled": stalled, "stall_answer_s": stall_s,
+            "profiled": {"wall_ms": prof_wall * 1e3, "busy_ms": busy_ms, "span_ms": span_ms,
+                         "idle_share": 1 - busy_ms / (prof_wall * 1e3)}})
+    finally:
+        clients.shutdown()
+        srv.shutdown()
+        srv.server_close()
+        service.stop()
+    emit(info)
+    return info
+
+
 def kernels_line(kern: dict, model: dict, presets: dict, train: dict, data: dict, cli: dict,
-                 dev: dict) -> list[dict]:
+                 dev: dict, options: dict | None = None, serve: dict | None = None) -> list[dict]:
     """The rows of the ``kernels`` line: each kernel's times at its shapes
     (phase ``kernels``, ``model_presets``) and its launches on each main
     path, each counted from 0 just before that path ran."""
@@ -1613,8 +2215,7 @@ def kernels_line(kern: dict, model: dict, presets: dict, train: dict, data: dict
             rows = [r for r in p["times"] if r["kernel"] == kernel]
             if not rows:
                 continue
-            row = _summary(f"{name} ({kernel}), {preset}", rows, kernel, replaces,
-                           kern["max_err"], dev)
+            row = _summary(f"{name} ({kernel}), {preset}", rows, replaces, dev)
             row["launches_by_path"] = {
                 "predict_batch": sum(r["launches"][name] for r in p["results"]),
                 f"cli_{preset}": cli_k[f"cli_{preset}"][kernel]}
@@ -1623,6 +2224,38 @@ def kernels_line(kern: dict, model: dict, presets: dict, train: dict, data: dict
                                           for r in p["results"]}
             row["max_abs_err"] = stacks
             summary.append(row)
+    # the bfloat16 instances: the train_options phase's VIGOR steps and the
+    # options CLIs' train steps (their validation runs in float32)
+    if options is not None:
+        opts = cli["options"]
+
+        def bf16(run, kernel):
+            return run["launches"]["by_dtype"].get(f"{kernel} bfloat16", 0)
+
+        paths = {
+            "matching_epilogue (K1), VIGOR bf16": {
+                "train_options": options["launches_bf16_k1"],
+                "cli_train_VIGOR_bf16": sum(bf16(opts[r], "matching_epilogue")
+                                            for r in ("vigor_first", "vigor_resumed"))},
+            "matching_epilogue (K1), KITTI bf16": {
+                "cli_train_KITTI_bf16": bf16(opts["KITTI"], "matching_epilogue")},
+            "matching_scores (K2), KITTI bf16": {
+                "cli_train_KITTI_bf16": bf16(opts["KITTI"], "matching_scores")},
+            "matching_scores (K2), OxfordRobotCar bf16": {
+                "cli_train_OxfordRobotCar_bf16": bf16(opts["OxfordRobotCar"],
+                                                      "matching_scores")}}
+        for row in kern["bf16_summary"]:
+            row["launches_by_path"] = paths[row["name"]]
+            row["launches"] = sum(row["launches_by_path"].values())
+            summary.append(row)
+    # every served request: the serve phase's counts by kernel
+    if serve is not None:
+        summary[0]["launches_by_path"]["serve"] = serve["launches"]["matching_epilogue"]
+        summary[0]["launches"] += serve["launches"]["matching_epilogue"]
+        summary[1]["launches_by_path"]["serve"] = serve["launches"]["matching_scores_prior"]
+        summary[2]["launches_by_path"]["serve"] = serve["launches"]["matching_scores_fov"]
+        for row in summary[1:3]:
+            row["launches"] = sum(row["launches_by_path"].values())
     idle = [(row["name"], path) for row in summary
             for path, n in row["launches_by_path"].items() if not n]
     if idle:
@@ -1654,17 +2287,20 @@ def main(argv=None) -> int:
     model, net = phase_model(dev)
     presets = phase_model_presets(dev)
     train = phase_train(dev, args.out)
+    options = phase_train_options(dev)
     with tempfile.TemporaryDirectory(prefix="ccvpe_smoke_roots_") as tmp:
         roots = write_roots(tmp)
         data = phase_data(dev, roots)
         cli = phase_cli(dev, roots)
     timing = phase_timing(dev, net, args.out)
-    summary = kernels_line(kern, model, presets, train, data, cli, dev)
+    serve = phase_serve(dev, net)
+    summary = kernels_line(kern, model, presets, train, data, cli, dev, options, serve)
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(json.dumps(
             {"device": dev, "kernels": {k: v for k, v in kern.items() if k != "max_err"},
-             "model": model, "model_presets": presets, "train": train, "data": data,
-             "cli": cli, "timing": timing,
+             "model": model, "model_presets": presets, "train": train,
+             "train_options": options, "data": data, "cli": cli, "timing": timing,
+             "serve": serve,
              "seconds": time.perf_counter() - t0}, indent=1))
     emit({"kernels": summary})
     print(dev["nvidia_smi"], flush=True)

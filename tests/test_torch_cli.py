@@ -123,10 +123,8 @@ def test_oxford_eval_matches_jax(oxford_root, model_pt, on_cpu, tmp_path):
 
 
 @pytest.mark.parametrize("cli,flags,item", [
-    (PV, ["--bf16"], "item 3"), (PV, ["--bf16_params"], "item 3"), (PV, ["--remat"], "item 3"),
-    (PV, ["--remat", "encoder"], "item 3"), (PV, ["--pretrained_b0", "b0.pt"], "item 3"),
     (PV, ["--zero1"], "item 7"), (PV, ["--n_model", "2"], "item 7"),
-    (PK, ["--bf16"], "item 3"), (PO, ["--zero1"], "item 7")])
+    (PO, ["--zero1"], "item 7")])
 def test_unported_flags_exit_naming_their_roadmap_item(cli, flags, item, on_cpu):
     with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1 {item}"):
         cli.main(["--model_preset", "NANO", *flags])

@@ -188,14 +188,7 @@ def test_readout_path_agrees_with_the_heatmap_path(vigor_root, tmp_path, with_he
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(n_model=2), "item 7"), (dict(zero1=True), "item 7"),
-    (dict(compute_dtype="bfloat16"), "item 3"), (dict(param_dtype="bfloat16"), "item 3"),
-    (dict(remat="all"), "item 3")])
+    (dict(n_model=2), "item 7"), (dict(zero1=True), "item 7")])
 def test_options_not_ported_raise(kw, item):
     with pytest.raises(ValueError, match=f"ROADMAP.md Queue 1 {item}"):
         TH.Trainer(CFG, device="cpu", **kw)
-
-
-def test_pretrained_b0_is_not_ported():
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 3"):
-        TH.Trainer(CFG, device="cpu").init_state(pretrained_b0="b0.pt")

@@ -48,10 +48,10 @@ def _inputs(dev, b, hw, cs, cg, seed, dtype=torch.float32):
 def test_epilogue_kernel_matches_plain(dev, layout, dtype, cs, shift, offsets, hw):
     x, g = _inputs(dev, 2, hw, cs, cs, seed=cs, dtype=dtype)
     x[1, 0, 0] = 0
-    before = MC.LAUNCHES["matching_epilogue"]
+    before = MC.launch_counts()["matching_epilogue"]
     got = MC.launch_matching_epilogue(x, g, shift, tuple(offsets), "first", layout)
     torch.cuda.synchronize()
-    assert MC.LAUNCHES["matching_epilogue"] == before + 1
+    assert MC.launch_counts()["matching_epilogue"] == before + 1
     want = TM.matching_epilogue_plain(x.float(), g.float(), shift, offsets)
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     for a, b in zip(got, want):
@@ -75,10 +75,10 @@ def test_scores_kernel_matches_plain(dev, layout, dtype, cs, cg, shift, offsets,
                                       tuple(offsets), window, layout)
         return
     x, g = _inputs(dev, 3, (9, 7), cs, cg, seed=cs + cg, dtype=dtype)
-    before = MC.LAUNCHES["matching_scores"]
+    before = MC.launch_counts()["matching_scores"]
     got = MC.launch_matching_scores(x, g, shift, tuple(offsets), window, layout)
     torch.cuda.synchronize()
-    assert MC.LAUNCHES["matching_scores"] == before + 1
+    assert MC.launch_counts()["matching_scores"] == before + 1
     want = TM.matching_scores_plain(x.float(), g.float(), shift, offsets, window)
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     torch.testing.assert_close(got.float(), want, **tol)
@@ -100,10 +100,10 @@ def test_tile_layout_matches_plain(dev, dtype, b, hw, cs, shift, offsets):
     x, g = _inputs(dev, b, hw, cs, cs, seed=cs + b, dtype=dtype)
     x[0, 0, 0] = 0          # zero rows: the 1e-12 clamps give 0, not NaN
     x[-1, -1, -1] = 0
-    before = MC.LAUNCHES_BY_LAYOUT["matching_epilogue", "tile"]
+    before = MC.launch_counts("layout")["matching_epilogue", "tile"]
     got = MC.launch_matching_epilogue(x, g, shift, tuple(offsets), "first", "tile")
     torch.cuda.synchronize()
-    assert MC.LAUNCHES_BY_LAYOUT["matching_epilogue", "tile"] == before + 1
+    assert MC.launch_counts("layout")["matching_epilogue", "tile"] == before + 1
     want = TM.matching_epilogue_plain(x.float(), g.float(), shift, offsets)
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     for a, w in zip(got, want):
@@ -138,10 +138,10 @@ def test_scores_tile_layout_matches_plain(dev, dtype, b, hw, cs, cg, shift, offs
     # a row that is zero inside bin 1's window only (cyclically from k_1)
     inside = (torch.arange(cg, device=dev) + ks[min(1, len(ks) - 1)]) % cs
     x[-1, -1, -1, inside] = 0
-    before = MC.LAUNCHES_BY_LAYOUT["matching_scores", "tile"]
+    before = MC.launch_counts("layout")["matching_scores", "tile"]
     got = MC.launch_matching_scores(x, g, shift, tuple(offsets), window, "tile")
     torch.cuda.synchronize()
-    assert MC.LAUNCHES_BY_LAYOUT["matching_scores", "tile"] == before + 1
+    assert MC.launch_counts("layout")["matching_scores", "tile"] == before + 1
     want = TM.matching_scores_plain(x.float(), g.float(), shift, offsets, window)
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     assert got.dtype == dtype and got.shape == want.shape
@@ -241,11 +241,11 @@ def test_automatic_layout_and_grad_free_dispatch(dev):
     assert MC.pick_layout("matching_scores", x, 40, 20) == "tile"
     assert MC.pick_layout("matching_scores", x, 20, 20) == "tile"
     assert MC.pick_layout("matching_epilogue", x[:, :8, :8].contiguous(), 40, 20) == "warp"
-    before = MC.LAUNCHES["matching_epilogue"]
-    tile = MC.LAUNCHES_BY_LAYOUT["matching_epilogue", "tile"]
+    before = MC.launch_counts()["matching_epilogue"]
+    tile = MC.launch_counts("layout")["matching_epilogue", "tile"]
     s, _, _ = TM.matching_epilogue(x, g, 2, range(20))
-    assert MC.LAUNCHES["matching_epilogue"] == before + 1
-    assert MC.LAUNCHES_BY_LAYOUT["matching_epilogue", "tile"] == tile + 1
+    assert MC.launch_counts()["matching_epilogue"] == before + 1
+    assert MC.launch_counts("layout")["matching_epilogue", "tile"] == tile + 1
     torch.testing.assert_close(s, TM.matching_epilogue_plain(x, g, 2, range(20))[0], **F32_TOL)
 
 
@@ -294,10 +294,10 @@ def test_epilogue_backward_at_the_vigor_scales(dev, scale, offsets, used):
     cot = [torch.randn(s, generator=gen).to(dev) for s in shapes]
     if used != "all":
         cot = [c if name == used else None for c, name in zip(cot, ("scores", "smax", "xnorm"))]
-    before = dict(MC.LAUNCHES)
+    before = MC.launch_counts()
     got = _grads(MC.matching_epilogue_cuda, x, g, args, cot)
     # one launch, in the forward; the backward runs the plain version
-    assert MC.LAUNCHES["matching_epilogue"] == before["matching_epilogue"] + 1
+    assert MC.launch_counts()["matching_epilogue"] == before["matching_epilogue"] + 1
     want = _grads(TM.matching_epilogue_plain, x, g, args, cot)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, **F32_TOL)
@@ -314,9 +314,9 @@ def test_scores_backward_masked_and_prior(dev, scale, cg_div, offsets):
     args = (shift, tuple(offsets), "first")
     gen = torch.Generator(device="cpu").manual_seed(cs + 1)
     cot = [torch.randn((2, side, side, len(offsets)), generator=gen).to(dev)]
-    before = MC.LAUNCHES["matching_scores"]
+    before = MC.launch_counts()["matching_scores"]
     got = _grads(MC.matching_scores_cuda, x, g, args, cot)
-    assert MC.LAUNCHES["matching_scores"] == before + 1
+    assert MC.launch_counts()["matching_scores"] == before + 1
     want = _grads(TM.matching_scores_plain, x, g, args, cot)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, **F32_TOL)

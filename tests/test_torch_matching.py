@@ -171,7 +171,7 @@ def test_cpu_tensor_takes_the_plain_path_and_counts_nothing():
                                            range(4)),
         TM.matching_scores_plain(torch.from_numpy(x2), torch.from_numpy(g2), 8, range(4)),
         rtol=0, atol=0)
-    assert matching_cuda.LAUNCHES == {"matching_epilogue": 0, "matching_scores": 0}
+    assert matching_cuda.launch_counts() == {"matching_epilogue": 0, "matching_scores": 0}
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
