@@ -9,12 +9,15 @@
 Images are uint8 RGB arrays (HWC); ``predict`` resizes them on the host,
 ``predict_batch`` takes model-sized batches.  Normalisation, the forward and
 the pose readout run on the model's device under ``torch.inference_mode``.
+``model.quantize_int8(calib)`` turns a serving model into its int8
+post-training-quantized form.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -69,10 +72,8 @@ class CVMModel:
         n = _ori_noise_to_n(ori_noise)
         offsets = None if n is None else range(-n, n + 1)
         with torch.inference_mode():
-            g = normalize_images(torch.from_numpy(np.ascontiguousarray(grd)).to(self.device))
-            s = normalize_images(torch.from_numpy(np.ascontiguousarray(sat)).to(self.device))
-            out = self.net(g, s, loc_offsets=offsets, circular=circular,
-                           matching_impl=self.matching_impl)
+            out = self.net(self._normalized(grd), self._normalized(sat), loc_offsets=offsets,
+                           circular=circular, matching_impl=self.matching_impl)
             return out, pose_readout(out, want_heatmap=return_heatmap)
 
     def predict_batch(self, grd: np.ndarray, sat: np.ndarray, *,
@@ -95,11 +96,63 @@ class CVMModel:
                 heatmap=r["heatmap"][i] if return_heatmap else None))
         return poses
 
+    def quantize_int8(self, calib: Sequence[tuple] | None = None, *,
+                      ori_noise: float = 180.0, select: str = "all") -> "CVMModel":
+        """Post-training int8 quantization of this model, in place (JAX
+        ``CVMModel.quantize_int8``).
+
+        Swaps the selected convs for ``nn.layers.QuantConv2d``: per-channel
+        int8 weights and calibrated static activation scales (``nn.quant``).
+        Later ``predict`` / ``predict_batch`` calls run them as int8
+        products (``torch._int_mm`` on the card) with int32 sums; the
+        matching (K1, K2 on the card), the deconvs and the descriptor
+        collapse and matmul stay in float32.  The model stays on its device.
+        Inference-only: ``save_torch`` refuses the int8 model (the reference
+        checkpoint format has no int8 form), so quantize a serving copy.
+
+        ``calib``: (grd, sat) uint8 image batches at model size whose
+        forwards (at ``ori_noise``'s offsets) record the activation ranges;
+        default one seeded batch of two uniform-noise pairs (prefer a
+        handful of real samples for deployment).  ``select``: ``"all"``
+        (every non-depthwise conv) or ``"mxu"``/``"mxu:<threshold>"``
+        (``nn.quant.mxu_bound_select``)."""
+        from .nn import quant
+
+        if quant.quantized_fraction(self.net) > 0:
+            raise ValueError(
+                "model is already int8-quantized; re-quantizing would "
+                "recalibrate on int8 codes and corrupt the scales")
+        policy = quant.resolve_select(select)
+        if calib is None:
+            rng = np.random.default_rng(0)
+            calib = [(rng.integers(0, 256, (2, *self.cfg.grd_hw, 3), dtype=np.uint8),
+                      rng.integers(0, 256, (2, *self.cfg.sat_hw, 3), dtype=np.uint8))]
+        n = _ori_noise_to_n(ori_noise)
+        offsets = None if n is None else range(-n, n + 1)
+
+        def forward(g, s):
+            return self.net(self._normalized(g), self._normalized(s), loc_offsets=offsets,
+                            matching_impl=self.matching_impl)
+
+        with torch.inference_mode():
+            ranges = quant.calibrate(self.net, calib, forward)
+        quant.quantize_params(self.net, ranges, select=policy)
+        return self
+
+    def _normalized(self, images: np.ndarray) -> torch.Tensor:
+        return normalize_images(torch.from_numpy(np.ascontiguousarray(images)).to(self.device))
+
     def save_torch(self, path: str) -> None:
         """Write a reference-format ``.pt`` of this model's weights and BN
         statistics (``io.from_jax.save_state_dict``; JAX ``api.py:233``)."""
         from .io.from_jax import save_state_dict
+        from .nn.quant import quantized_fraction
 
+        if quantized_fraction(self.net) > 0:
+            raise ValueError(
+                "cannot write an int8-quantized model to a torch "
+                "checkpoint — quantized models are inference-only; keep the "
+                "float model for torch export (see quantize_int8 docstring)")
         save_state_dict(self.net, path)
 
     def predict(self, grd: np.ndarray, sat: np.ndarray, *,

@@ -19,6 +19,12 @@ no ``_fc``, which the port trains without a gradient).
 The trees are nested dicts and lists of array-likes (numpy arrays, or
 anything ``np.asarray`` takes).
 
+A tree quantized by ``ccvpe_tpu.nn.quant`` (a conv node ``{"w": int8 HWIO,
+"q_sw", "q_sx", "b"}``) loads with ``quantized_from_jax``: each such conv
+becomes a ``QuantConv2d`` with the same codes and scales.
+``module_name_from_jax`` names a conv of JAX's calibration ``ranges`` as
+the port's module.
+
 ``import_b0`` puts a raw EfficientNet-B0 state_dict (the lukemelas release
 file) into both encoders of a CVM, the counterpart of
 ``ccvpe_tpu/io/torch_import.py::import_b0`` in ``create_train_state``;
@@ -31,6 +37,8 @@ import numpy as np
 import torch
 
 from ..nn.efficientnet import NUM_CLASSES
+from ..nn.layers import QuantConv2d
+from ..nn.quant import swap_module
 
 
 def _conv_w(w):
@@ -55,6 +63,9 @@ def _conv(out, prefix, p):
     out[prefix + ".weight"] = _conv_w(p["w"])
     if "b" in p:
         out[prefix + ".bias"] = np.asarray(p["b"])
+    if "q_sx" in p:   # an int8 node of ``ccvpe_tpu.nn.quant.quantize_params``
+        out[prefix + ".q_sw"] = np.asarray(p["q_sw"])
+        out[prefix + ".q_sx"] = np.asarray(p["q_sx"])
 
 
 def _backbone(out, p, params, state):
@@ -126,6 +137,36 @@ def _cvm_tensors(params, bn_state) -> dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.ascontiguousarray(
                 v if np.issubdtype(v.dtype, np.integer) else v.astype(np.float32)))
             for k, v in out.items()}
+
+
+def quantized_from_jax(net: torch.nn.Module, params, bn_state) -> torch.nn.Module:
+    """Load the JAX CVM's (params, bn_state), some of its conv nodes int8
+    (``ccvpe_tpu.nn.quant.quantize_params``), into ``net`` in place: each
+    int8 node's conv becomes a ``QuantConv2d`` with its codes, ``q_sw``,
+    ``q_sx`` and bias; everything else loads as ``state_dict_from_jax``."""
+    sd = state_dict_from_jax(params, bn_state)
+    for key in [k for k in sd if k.endswith(".q_sx")]:
+        name = key[:-len(".q_sx")]
+        conv = net.get_submodule(name)
+        q = QuantConv2d(conv, sd[name + ".weight"], sd[name + ".q_sw"], sd[key],
+                        sd.get(name + ".bias"))
+        swap_module(net, name, q.to(conv.weight.device))
+    net.load_state_dict(sd, strict=True)
+    return net
+
+
+def module_name_from_jax(path: str) -> str:
+    """A conv's path in the JAX CVM tree (a key of ``ranges``, e.g.
+    ``grd_efficientnet/blocks/3/expand_conv``, ``conv6_ori/conv_a``) ->
+    the port's module name (``grd_efficientnet._blocks.3._expand_conv``,
+    ``conv6_ori.0``)."""
+    parts = path.split("/")
+    if parts[0].endswith("_efficientnet"):
+        if parts[1] == "blocks":
+            return f"{parts[0]}._blocks.{parts[2]}._{parts[3]}"
+        return f"{parts[0]}._{parts[1]}"
+    leaf = {"conv_c": "0", "conv_h": "2", "conv_a": "0", "conv_b": "2"}[parts[1]]
+    return f"{parts[0]}.{leaf}"
 
 
 def check_shapes(want: dict, have: dict, spec, preset: str) -> None:

@@ -22,6 +22,10 @@ input BatchNorm follows ``bn_apply`` op by op: batch statistics from the
 bfloat16 activations (summed in float32, rounded to bfloat16), folded into
 float32 running statistics; the normalisation in bfloat16.
 
+``QuantConv2d`` is the int8 conv of post-training quantization
+(``nn/quant.py``; JAX ``_conv_apply_int8``), with JAX's op order and
+rounding: the same codes and int32 sums from the same inputs.
+
 ``checkpoint`` is the rematerialisation of a block (``jax.checkpoint``):
 ``torch.utils.checkpoint`` without re-entry, whose recompute neither folds
 the batch statistics into the running ones a second time nor draws new
@@ -152,6 +156,159 @@ class StaticPadConv2d(Conv2d):
     def forward(self, x: torch.Tensor, circular: bool | None = None) -> torch.Tensor:
         circular = self.circular if circular is None else circular
         return super().forward(pad2d(x, self.static_pad, circular))
+
+
+# int8 products of QuantConv2d by route: 'mm' (torch._int_mm, on the card)
+# and 'plain' (the exact float64 conv, on the CPU); reset with reset_int8_counts
+INT8_COUNTS = {"mm": 0, "plain": 0}
+_INT8_LOCK = threading.Lock()
+# torch._int_mm on CUDA takes more than 16 rows, and K and N in multiples of 8
+_MM_MIN_ROWS, _MM_ALIGN = 17, 8
+
+
+def reset_int8_counts() -> None:
+    with _INT8_LOCK:
+        for k in INT8_COUNTS:
+            INT8_COUNTS[k] = 0
+
+
+def int8_counts() -> dict:
+    with _INT8_LOCK:
+        return dict(INT8_COUNTS)
+
+
+def _count_int8(route: str) -> None:
+    with _INT8_LOCK:
+        INT8_COUNTS[route] += 1
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def quantize_activation(x_nhwc: torch.Tensor, inv_sx: torch.Tensor) -> torch.Tensor:
+    """int8 codes ``clip(round(x * inv_sx), -127, 127)`` in float32 (ties to
+    even), laid out NHWC-contiguous."""
+    xq = torch.clamp(torch.round(x_nhwc.float() * inv_sx), -127.0, 127.0)
+    return xq.to(torch.int8).contiguous()
+
+
+def pad_nhwc(x: torch.Tensor, pad: Pad2d, circular: bool = False) -> torch.Tensor:
+    """``pad2d`` on an NHWC tensor (of any dtype): wrap first, then zeros."""
+    (pt, pb), (pl, pr) = pad
+    if circular and (pl or pr):
+        x = torch.cat([x[:, :, x.shape[2] - pl:], x, x[:, :, :pr]], dim=2)
+        pl = pr = 0
+    if pt or pb or pl or pr:
+        x = F.pad(x, (0, 0, pl, pr, pt, pb))
+    return x.contiguous()
+
+
+def int8_weight_matrix(weight: torch.Tensor) -> torch.Tensor:
+    """OIHW int8 codes -> the [N, K] operand of ``int8_conv_mm``: rows in
+    (kh, kw, c) order, N and K zero-padded to multiples of 8."""
+    o = weight.shape[0]
+    w = weight.permute(0, 2, 3, 1).reshape(o, -1)
+    n, k = _round_up(o, _MM_ALIGN), _round_up(w.shape[1], _MM_ALIGN)
+    return F.pad(w, (0, k - w.shape[1], 0, n - o)).contiguous()
+
+
+def int8_conv_mm(xq: torch.Tensor, w_mat: torch.Tensor, kernel: int, stride: int,
+                 cout: int) -> torch.Tensor:
+    """int32 accumulators [B, Ho, Wo, cout] of a conv of the padded NHWC int8
+    map ``xq`` with the codes of ``w_mat`` (``int8_weight_matrix``): an int8
+    im2col times the weights through ``torch._int_mm`` (cuBLASLt int8 on the
+    tensor cores, int32 sums).  The im2col's rows, K and N are zero-padded to
+    the product's limits, which is exact in integers.  A 1x1 stride-1 conv
+    whose K needs no padding reads the map itself."""
+    b, hp, wp, c = xq.shape
+    ho, wo = (hp - kernel) // stride + 1, (wp - kernel) // stride + 1
+    m = b * ho * wo
+    n_pad, k_pad = w_mat.shape
+    m_pad = m if m >= _MM_MIN_ROWS else _round_up(_MM_MIN_ROWS, 16)
+    if kernel == stride == 1 and k_pad == c and m_pad == m:
+        cols = xq.reshape(m, c)
+    else:
+        alloc = torch.empty if (k_pad, m_pad) == (kernel * kernel * c, m) else torch.zeros
+        cols = alloc((m_pad, k_pad), dtype=torch.int8, device=xq.device)
+        patches = xq.unfold(1, kernel, stride).unfold(2, kernel, stride)  # [B,Ho,Wo,C,kh,kw]
+        torch.as_strided(cols, (b, ho, wo, kernel, kernel, c),
+                         (ho * wo * k_pad, wo * k_pad, k_pad, kernel * c, c, 1)
+                         ).copy_(patches.permute(0, 1, 2, 4, 5, 3))
+    acc = torch._int_mm(cols, w_mat.t())
+    return acc[:m, :cout].view(b, ho, wo, cout)
+
+
+def int8_conv_plain(xq: torch.Tensor, weight: torch.Tensor, stride: int) -> torch.Tensor:
+    """The plain version of ``int8_conv_mm``: the same integers through a
+    float64 conv, exact (every partial sum is an integer far below 2**53)."""
+    y = F.conv2d(xq.permute(0, 3, 1, 2).double(), weight.double(), stride=stride)
+    return y.to(torch.int32).permute(0, 2, 3, 1)
+
+
+class QuantConv2d(nn.Module):
+    """Post-training int8 conv (JAX ``layers._conv_apply_int8``): int8
+    activations with the calibrated per-tensor scale ``q_sx``, int8 weights
+    with per-output-channel scales ``q_sw``, int32 sums, then
+    ``(acc * (q_sx * q_sw)).to(x.dtype) + bias`` (the bias after, in
+    ``x.dtype``).  The map is quantized before it is padded: zero and wrap
+    padding are exact on the codes.
+
+    It keeps the source conv's pads: a ``StaticPadConv2d``'s static pad and
+    circular flag (with the per-call ``circular`` override), or the
+    decoder's symmetric ``Conv2d(padding=p)``.  Buffers (state-dict keys):
+    ``weight`` (int8 OIHW), ``q_sw``, ``q_sx``, ``bias``.  On a CUDA tensor
+    the product is ``int8_conv_mm``; on a CPU tensor ``int8_conv_plain``; on
+    any other device it raises.  Inference only."""
+
+    def __init__(self, conv: nn.Conv2d, weight: torch.Tensor, q_sw: torch.Tensor,
+                 q_sx: torch.Tensor, bias: torch.Tensor | None = None):
+        super().__init__()
+        if conv.groups != 1 or conv.dilation != (1, 1) or len(set(conv.stride)) != 1:
+            raise ValueError(f"the int8 conv takes ungrouped, undilated, square-strided "
+                             f"convs, not {conv}")
+        if isinstance(conv, StaticPadConv2d):
+            self.static_pad, self.circular = conv.static_pad, conv.circular
+        else:
+            ph, pw = conv.padding
+            self.static_pad, self.circular = ((ph, ph), (pw, pw)), False
+        self.kernel, self.stride = conv.kernel_size[0], conv.stride[0]
+        self.register_buffer("weight", weight.to(torch.int8))
+        self.register_buffer("q_sw", q_sw.to(torch.float32))
+        self.register_buffer("q_sx", q_sx.to(torch.float32).reshape(()))
+        self.register_buffer("bias", None if bias is None else bias.detach().clone())
+        self._derive()
+
+    def _derive(self) -> None:
+        """The buffers that follow from the codes and scales: 1 / q_sx and
+        q_sx * q_sw in float32, and the product's weight operand."""
+        self.register_buffer("inv_sx", torch.ones_like(self.q_sx) / self.q_sx,
+                             persistent=False)
+        self.register_buffer("scale", self.q_sx * self.q_sw, persistent=False)
+        self.register_buffer("w_mat", int8_weight_matrix(self.weight), persistent=False)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        super()._load_from_state_dict(*args, **kwargs)
+        self._derive()
+
+    def accumulate(self, xq: torch.Tensor) -> torch.Tensor:
+        """int32 sums [B, Ho, Wo, cout] of the padded NHWC codes ``xq``."""
+        if xq.is_cuda:
+            _count_int8("mm")
+            return int8_conv_mm(xq, self.w_mat, self.kernel, self.stride, self.weight.shape[0])
+        if xq.device.type == "cpu":
+            _count_int8("plain")
+            return int8_conv_plain(xq, self.weight, self.stride)
+        raise RuntimeError(f"no int8 conv for a tensor on {xq.device}")
+
+    def forward(self, x: torch.Tensor, circular: bool | None = None) -> torch.Tensor:
+        circular = self.circular if circular is None else circular
+        xq = pad_nhwc(quantize_activation(x.permute(0, 2, 3, 1), self.inv_sx),
+                      self.static_pad, circular)
+        y = (self.accumulate(xq).float() * self.scale).to(x.dtype)
+        if self.bias is not None:
+            y = y + self.bias.to(x.dtype)
+        return y.permute(0, 3, 1, 2)
 
 
 _REMAT = threading.local()

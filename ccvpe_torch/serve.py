@@ -3,6 +3,7 @@ framework; counterpart of ``ccvpe_tpu/serve.py``):
 
     python -m ccvpe_torch.serve --checkpoint model.pt --preset VIGOR --port 8571
     CCVPE_PLATFORM=cpu python -m ccvpe_torch.serve --preset NANO --matching_impl plain
+    python -m ccvpe_torch.serve --preset VIGOR --batch 8 --quantize int8 --calib_dir pairs/
 
 It runs on the CUDA device (through the matching kernels, ``--matching_impl
 kernel``) unless ``CCVPE_PLATFORM=cpu``; without CUDA and without that
@@ -30,8 +31,10 @@ header, before reading), 411 on a bad Content-Length, 408 on a body that
 does not arrive within ``--request_timeout``, 503 when a batcher's queue
 or the single-pair admission is full.
 
-Not ported yet: ``--quantize int8`` (ROADMAP.md Queue 1 item 8) and
-``--mesh`` (item 7) exit naming their item.
+``--quantize int8`` serves the int8 post-training-quantized model
+(``api.CVMModel.quantize_int8``), calibrated on ``--calib_dir``'s image
+pairs (``load_calibration_pairs``) or, without it, on one synthetic batch.
+Not ported yet: ``--mesh`` (ROADMAP.md Queue 1 item 7) exits naming its item.
 """
 
 from __future__ import annotations
@@ -319,6 +322,51 @@ class PoseService:
         return out
 
 
+def load_calibration_pairs(calib_dir: str, cfg, n: int = 16):
+    """Real-sample int8 calibration set from a directory of image pairs.
+
+    Accepts either ``<stem>_grd.<ext>`` + ``<stem>_sat.<ext>`` flat files or
+    ``grd/`` + ``sat/`` subdirectories with matching filenames.  Images are
+    resized to the model's input shapes; returns the one-batch ``calib``
+    list ``api.CVMModel.quantize_int8`` takes.
+    """
+    import os
+
+    from PIL import Image
+
+    from .api import _prepare
+
+    def read(path):
+        with Image.open(path) as im:
+            return np.asarray(im.convert("RGB"), np.uint8)
+
+    pairs = []
+    gdir, sdir = (os.path.join(calib_dir, d) for d in ("grd", "sat"))
+    if os.path.isdir(gdir) and os.path.isdir(sdir):
+        for name in sorted(os.listdir(gdir)):
+            spath = os.path.join(sdir, name)
+            if os.path.exists(spath):
+                pairs.append((os.path.join(gdir, name), spath))
+    else:
+        stems: dict[str, dict] = {}
+        for name in sorted(os.listdir(calib_dir)):
+            stem, ext = os.path.splitext(name)
+            for kind in ("grd", "sat"):
+                if stem.endswith(f"_{kind}"):
+                    stems.setdefault(stem[:-4], {})[kind] = os.path.join(
+                        calib_dir, name)
+        pairs = [(v["grd"], v["sat"]) for v in stems.values()
+                 if len(v) == 2]
+    if not pairs:
+        raise FileNotFoundError(
+            f"no calibration pairs in {calib_dir} (expected grd/+sat/ "
+            f"subdirs or <stem>_grd.<ext>/<stem>_sat.<ext> files)")
+    pairs = pairs[:n]
+    grd = np.stack([_prepare(read(g), cfg.grd_hw) for g, _ in pairs])
+    sat = np.stack([_prepare(read(s), cfg.sat_hw) for _, s in pairs])
+    return [(grd, sat)]
+
+
 def make_handler(service: PoseService, max_body_bytes: int = 64 << 20,
                  request_timeout: float = 60.0):
     """``max_body_bytes`` bounds per-request allocation: oversized uploads
@@ -473,7 +521,19 @@ def main(argv=None):
                     help="run the default forward once (builds the kernels) "
                          "before serving")
     ap.add_argument("--quantize", default="", choices=["", "int8"],
-                    help="not ported to ccvpe_torch yet: exits")
+                    help="post-training quantization of the serving model "
+                         "(int8: int8 conv products with int32 sums, nn/quant.py); "
+                         "pass --calib_dir for deployment-grade activation "
+                         "scales — without it calibration uses ONE "
+                         "synthetic uniform-noise batch and real-image "
+                         "pose accuracy can degrade")
+    ap.add_argument("--calib_dir", default="",
+                    help="directory of real image pairs for int8 activation "
+                         "calibration: <stem>_grd.<ext> + <stem>_sat.<ext> "
+                         "files, or grd/ and sat/ subdirectories with "
+                         "matching names")
+    ap.add_argument("--calib_samples", type=int, default=16,
+                    help="max pairs read from --calib_dir")
     ap.add_argument("--queue_depth", type=int, default=0,
                     help="micro-batcher admission queue bound (default "
                          "4x batch); beyond it requests get 503")
@@ -488,16 +548,29 @@ def main(argv=None):
                          "it); idle connections close, a body stall gets "
                          "408 (bounds per-connection time)")
     args = ap.parse_args(argv)
-    for flag, item in (("quantize", "item 8"), ("mesh", "item 7")):
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag} is not ported to ccvpe_torch yet "
-                             f"(ROADMAP.md Queue 1 {item})")
+    if args.mesh:
+        raise SystemExit("--mesh is not ported to ccvpe_torch yet "
+                         "(ROADMAP.md Queue 1 item 7)")
 
     from . import api
     from .train.cli import cli_device
 
     model = api.load_model(args.checkpoint, preset=args.preset, device=cli_device(),
                            matching_impl=args.matching_impl)
+    if args.quantize == "int8":
+        if args.calib_dir:
+            calib = load_calibration_pairs(args.calib_dir, model.cfg,
+                                           args.calib_samples)
+            model.quantize_int8(calib)
+            print(f"model quantized: int8 PTQ calibrated on "
+                  f"{int(calib[0][0].shape[0])} real pairs "
+                  f"from {args.calib_dir}")
+        else:
+            model.quantize_int8()
+            print("WARNING: int8 PTQ calibrated on ONE synthetic "
+                  "uniform-noise batch; real-image activation ranges can "
+                  "differ materially and pose accuracy may degrade — pass "
+                  "--calib_dir with real samples before production use")
     service = PoseService(model, args.preset, batch=args.batch,
                           max_wait_ms=args.max_wait_ms,
                           queue_depth=args.queue_depth or None)

@@ -95,6 +95,22 @@ Phases, each printing one JSON line:
    0.1 degree, probability 1e-6); a 413 and a 408; requests/s, latency,
    dispatches and batch fill, 503s, K1/K2 launches, and the card's idle
    share under the same load (``torch.profiler``).
+8. quant:   int8 post-training quantization of a copy of the ``model``
+   phase's VIGOR model (``CVMModel.quantize_int8`` on a seeded batch of two
+   pairs; seconds), batch 8: what ``torch._int_mm`` refuses on this card;
+   every int8 conv shape's int32 sums (``torch._int_mm`` over the int8
+   im2col) against the plain version (a float64 conv), exactly;
+   ``predict_batch`` at the serve keys through K1/K2 against the plain
+   matching (the same pixel per sample, the ``model`` phase's heatmap and
+   heading gates, the other outputs within ``QUANT_FLIP_SHARE`` of the int8
+   model's distance from float32; K1/K2 launches and int8 products counted from 0 at each key); the int8
+   readout's distance from the float32 model's (not gated); int8 against
+   float32 pairs/s in turns with TF32 off and on; peak memory; device ms by
+   part (int8 products, the int8 conv's other passes, K1+K2, the rest) of
+   both models;
+   ``python -m ccvpe_torch.serve --quantize int8 --calib_dir`` (through
+   ``serve.main`` on the same weights) answering 48 requests, each equal to
+   the served model's own ``predict_batch``; requests/s.
 
 Then the ``kernels`` summary line, the raw ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script then exits
@@ -126,6 +142,8 @@ import torch
 from ccvpe_torch import api
 from ccvpe_torch.data.transforms import normalize_images
 from ccvpe_torch.models import cvm
+from ccvpe_torch.nn import layers as TL
+from ccvpe_torch.nn import quant as TQ
 from ccvpe_torch.nn.layers import calibrate_batch_norm_
 from ccvpe_torch.ops import _build
 from ccvpe_torch.ops import gt as GT
@@ -2159,8 +2177,418 @@ def phase_serve(dev: dict, model: api.CVMModel) -> dict:
     return info
 
 
+def quant_launches(cfg) -> dict:
+    """The int8 model's main path: the serve phase's three keys, each with
+    the (K1, K2) launches of one forward (VIGOR: K1 at the six scales; the
+    prior adds the full-bin bottleneck stack, K2; fov=180 halves Cg, so K2's
+    masked window takes all six)."""
+    n_k1 = sum(cg == cs for _, cs, cg, _ in preset_scales(cfg))
+    return {(180.0, 360.0): (n_k1, 6 - n_k1), (36.0, 360.0): (n_k1, 7 - n_k1),
+            (180.0, 180.0): (0, 6)}
+
+
+QUANT_SERVE_CLIENTS, QUANT_SERVE_PER_CLIENT = 8, 6
+# the int8 model through K1/K2 against the plain matching: the kernels' sums
+# differ from the plain versions' in the last bits, which flips an
+# activation code wherever a value sits on a rounding tie, and a flipped
+# code moves the decoder's outputs by a quantization step.  The pixel, the
+# heatmap and the heading keep the model phase's gates.  The logits,
+# orientation field and stacks are held to half of the int8 model's own
+# distance from the float32 model (never tighter than the model phase's):
+# on the H100 the logits moved by 1.5e-3 at 103 of 2 097 152 pixels (over
+# the model phase's 1e-3), 0.38 of that distance; this share was set after
+# that reading.
+QUANT_FLIP_SHARE = 0.5
+INT8_RANGE = "int8_conv"      # the profiler range around each QuantConv2d call
+MATCH_KERNELS = ("match_row_kernel", "match_warp_kernel", "match_tile_kernel",
+                 "match_scores_tile_kernel")
+
+
+def _int_mm_limits() -> dict:
+    """What ``torch._int_mm`` takes on this card: operand shapes (rows M,
+    depth K, columns N; B as the transpose of a row-major [N, K], as the int8
+    conv passes it, or row-major [K, N]) and the first line of each refusal."""
+    def probe(m, k, n, transposed=True):
+        a = torch.ones((m, k), dtype=torch.int8, device="cuda")
+        b = (torch.ones((n, k), dtype=torch.int8, device="cuda").t() if transposed
+             else torch.ones((k, n), dtype=torch.int8, device="cuda"))
+        try:
+            y = torch._int_mm(a, b)
+            torch.cuda.synchronize()
+            return "ok" if int(y[0, 0]) == k else f"wrong sum {int(y[0, 0])}"
+        except RuntimeError as e:
+            return str(e).strip().splitlines()[0][:160]
+
+    out = {f"M{m} K{k} N{n}": probe(m, k, n)
+           for m, k, n in ((17, 32, 8), (16, 32, 8), (32, 27, 8), (32, 32, 1), (32, 32, 2))}
+    out["M32 K32 N8, B row-major [K, N]"] = probe(32, 32, 8, transposed=False)
+    return out
+
+
+def _int8_conv_checks(qmodel: api.CVMModel, grd, sat) -> dict:
+    """Every int8 conv shape of the model on the card, at the inputs of one
+    forward (batch 8, ori_noise 180): the int32 sums of ``int8_conv_mm``
+    (``torch._int_mm`` over the int8 im2col) against the plain version (the
+    same codes through a float64 conv), exactly."""
+    seen, rows = set(), []
+
+    def check(m, args):
+        circular = args[1] if len(args) > 1 and args[1] is not None else m.circular
+        xq = TL.pad_nhwc(TL.quantize_activation(args[0].permute(0, 2, 3, 1), m.inv_sx),
+                         m.static_pad, circular)
+        key = (tuple(xq.shape), tuple(m.weight.shape), m.stride)
+        if key in seen:
+            return
+        seen.add(key)
+        got = TL.int8_conv_mm(xq, m.w_mat, m.kernel, m.stride, m.weight.shape[0])
+        want = TL.int8_conv_plain(xq, m.weight, m.stride)
+        if got.dtype != torch.int32 or not torch.equal(got, want):
+            raise AssertionError(f"int8 conv {key}: torch._int_mm sums differ from the plain "
+                                 f"version's by {(got.double() - want.double()).abs().max()}")
+        b, ho, wo, _ = got.shape
+        n_pad, k_pad = m.w_mat.shape
+        direct = m.kernel == m.stride == 1 and k_pad == xq.shape[-1] and b * ho * wo >= 17
+        rows.append({"x": list(xq.shape), "w": list(m.weight.shape), "stride": m.stride,
+                     "M": b * ho * wo, "K": k_pad, "N": n_pad,
+                     "im2col_bytes": 0 if direct else max(b * ho * wo, 32) * k_pad,
+                     "max_abs_sum": int(got.abs().max())})
+
+    mods = [m for m in qmodel.net.modules() if isinstance(m, TL.QuantConv2d)]
+    handles = [m.register_forward_pre_hook(check) for m in mods]
+    try:
+        qmodel.forward_readout(grd, sat)
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    biggest = max(rows, key=lambda r: r["im2col_bytes"])
+    return {"shapes": len(rows), "int8_convs": len(mods), "equal": True,
+            "largest_im2col": biggest, "max_abs_sum": max(r["max_abs_sum"] for r in rows),
+            "rows": rows}
+
+
+def _pairs_per_s(model: api.CVMModel, grd, sat, n: int = 10) -> float:
+    for _ in range(3):
+        model.predict_batch(grd, sat)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        model.predict_batch(grd, sat)
+    return BATCH * n / (time.perf_counter() - t0)
+
+
+def _quant_profile(qmodel: api.CVMModel, grd, sat, out: Path | None) -> dict:
+    """Device ms of one ``predict_batch`` by part, over three profiled
+    calls: the int8 products (``aten::_int_mm``), the int8 conv's other
+    passes (quantize, pad, im2col, dequantize, bias: the rest of the
+    ``INT8_RANGE`` around each ``QuantConv2d`` call, a range this profile
+    alone puts there), K1 and K2, and everything else.  ``out`` None: the
+    float32 model (no int8 parts), no table written."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    forward = TL.QuantConv2d.forward
+
+    def ranged(self, x, circular=None):
+        with record_function(INT8_RANGE):
+            return forward(self, x, circular)
+
+    TL.QuantConv2d.forward = ranged
+    try:
+        qmodel.predict_batch(grd, sat)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                qmodel.predict_batch(grd, sat)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) / 3 * 1e3
+    finally:
+        TL.QuantConv2d.forward = forward
+    events = prof.events()
+
+    def inside(e):
+        while e is not None:
+            if e.name == INT8_RANGE:
+                return True
+            e = e.cpu_parent
+        return False
+
+    parts = {"int8_products": 0.0, "int8_passes": 0.0, "rest": 0.0}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        for k in e.kernels:
+            if any(n in k.name for n in MATCH_KERNELS):
+                continue
+            part = ("int8_products" if e.name == "aten::_int_mm"
+                    else "int8_passes" if inside(e) else "rest")
+            parts[part] += k.duration / 3e3
+    parts["matching_K1_K2"] = sum(
+        (e.time_range.end - e.time_range.start) / 3e3 for e in events
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and any(n in e.name for n in MATCH_KERNELS))
+    busy_ms, _ = _busy_ms(events)
+    if out is not None:
+        (out / "quant_profile.txt").write_text(
+            prof.key_averages().table(sort_by="device_time_total", row_limit=60))
+    int8 = any(isinstance(m, TL.QuantConv2d) for m in qmodel.net.modules())
+    if not ((parts["int8_products"] > 0) == int8 and parts["matching_K1_K2"] > 0):
+        raise AssertionError(f"the int8 profile shows no int8 products or no K1/K2: {parts}")
+    return {"device_ms_per_call": {**parts, "total": sum(parts.values())},
+            "busy_ms_per_call": busy_ms / 3, "wall_ms_per_call_profiled": wall_ms}
+
+
+def _serve_int8(model: api.CVMModel, tmp: str) -> dict:
+    """``python -m ccvpe_torch.serve --quantize int8 --calib_dir D`` through
+    ``serve.main`` on 127.0.0.1, on the ``model`` phase's weights (written
+    as a ``.pt``) at batch 8: 48 requests from 8 client threads (in a
+    process of their own) over the three keys; every answer against the
+    served int8 model's own ``predict_batch``; requests/s; launches."""
+    import concurrent.futures
+    import multiprocessing
+    import threading
+
+    from PIL import Image
+
+    from ccvpe_torch import serve
+    from ccvpe_torch.api import _prepare
+
+    cfg = model.cfg
+    pt = f"{tmp}/vigor.pt"
+    model.save_torch(pt)
+    rng = np.random.default_rng(61)
+    calib_dir = Path(tmp) / "calib"
+    for d in ("grd", "sat"):
+        (calib_dir / d).mkdir(parents=True)
+    for i in range(4):
+        Image.fromarray(rng.integers(0, 256, (*cfg.grd_hw, 3), dtype=np.uint8)).save(
+            calib_dir / "grd" / f"{i}.png")
+        Image.fromarray(rng.integers(0, 256, (*cfg.sat_hw, 3), dtype=np.uint8)).save(
+            calib_dir / "sat" / f"{i}.png")
+    pairs = []
+    for _ in range(12):
+        grd = rng.integers(0, 256, (*cfg.grd_hw, 3), dtype=np.uint8)
+        sat = rng.integers(0, 256, (*cfg.sat_hw, 3), dtype=np.uint8)
+        pairs.append((grd, sat, _png_b64(grd), _png_b64(sat)))
+    n = QUANT_SERVE_CLIENTS * QUANT_SERVE_PER_CLIENT
+    want = quant_launches(cfg)
+    keys = list(want)
+    requests = [(pairs[i % len(pairs)], keys[i % len(keys)]) for i in range(n)]
+    bodies = [json.dumps({"grd": g64, "sat": s64, "ori_noise": noise, "fov": fov}).encode()
+              for (_, _, g64, s64), (noise, fov) in requests]
+
+    started, ready, failed = {}, threading.Event(), []
+    build = serve.build_server
+
+    def build_local(service, host, port, **kw):
+        srv = build(service, "127.0.0.1", 0, **kw)
+        started.update(service=service, srv=srv)
+        ready.set()
+        return srv
+
+    def run():
+        try:
+            serve.main(["--checkpoint", pt, "--preset", cfg.name, "--batch", str(BATCH),
+                        "--max_wait_ms", "5", "--quantize", "int8", "--calib_dir",
+                        str(calib_dir), "--calib_samples", "4"])
+        except BaseException as e:  # noqa: BLE001 — reported to the phase
+            failed.append(e)
+            ready.set()
+
+    serve.build_server = build_local
+    thread = threading.Thread(target=run, daemon=True)
+    t0 = time.perf_counter()
+    thread.start()
+    clients = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        if not ready.wait(timeout=300) or failed:
+            raise AssertionError(f"serve --quantize int8 did not start: {failed}")
+        startup_s = time.perf_counter() - t0
+        service, srv = started["service"], started["srv"]
+        qmodel = service.model
+        n_int8 = sum(isinstance(m, TL.QuantConv2d) for m in qmodel.net.modules())
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        for k in range(len(keys)):      # warm every key's batcher
+            clients.submit(_client_load, url, [bodies[k]], 1).result()
+        before = {k: b.dispatches for k, b in service.batchers.items()}
+        MC.reset_launch_counts()
+        TL.reset_int8_counts()
+        answers, wall = clients.submit(_client_load, url, bodies, QUANT_SERVE_CLIENTS).result()
+        torch.cuda.synchronize()
+        launches, int8 = MC.launch_counts(), TL.int8_counts()
+        disp = {k: b.dispatches - before[k] for k, b in service.batchers.items()}
+        codes = [c for c, _, _ in answers]
+        if codes.count(200) != n:
+            raise AssertionError(f"serve int8: status codes {sorted(set(codes))}")
+        k1 = sum(want[k][0] * d for k, d in disp.items())
+        k2 = sum(want[k][1] * d for k, d in disp.items())
+        if launches != {"matching_epilogue": k1, "matching_scores": k2}:
+            raise AssertionError(f"serve int8 launches {launches}, dispatches {disp}")
+        if int8 != {"mm": n_int8 * sum(disp.values()), "plain": 0}:
+            raise AssertionError(f"serve int8: int8 products {int8}, dispatches {disp}")
+        worst_prob, worst_heading = 0.0, 0.0
+        for key in keys:
+            idx = [i for i in range(n) if requests[i][1] == key]
+            for lo in range(0, len(idx), BATCH):
+                chunk = idx[lo:lo + BATCH]
+                grd = np.stack([_prepare(requests[i][0][0], cfg.grd_hw) for i in chunk])
+                sat = np.stack([_prepare(requests[i][0][1], cfg.sat_hw) for i in chunk])
+                with service.lock:
+                    ref = qmodel.predict_batch(grd, sat, ori_noise=key[0], fov=key[1])
+                for i, q in zip(chunk, ref):
+                    got = answers[i][1]
+                    if (got["row"], got["col"]) != (q.row, q.col):
+                        raise AssertionError(f"serve int8 {key}: {got} vs direct {q}")
+                    worst_prob = max(worst_prob, abs(got["probability"] - q.probability))
+                    worst_heading = max(worst_heading, abs(
+                        (got["orientation_deg"] - q.orientation_deg + 180) % 360 - 180))
+        if not (worst_prob <= SERVE_PROB_TOL and worst_heading <= HEADING_TOL_DEG):
+            raise AssertionError(f"serve int8: probability {worst_prob}, heading {worst_heading}")
+        lat = sorted(t for _, _, t in answers)
+        return {"requests": n, "clients": QUANT_SERVE_CLIENTS, "startup_seconds": startup_s,
+                "seconds": wall, "requests_per_s": n / wall,
+                "client_latency_ms": {"p50": lat[len(lat) // 2] * 1e3, "max": lat[-1] * 1e3},
+                "dispatches": {json.dumps(list(k)): v for k, v in disp.items()},
+                "launches": {**launches,
+                             "matching_scores_prior": (want[keys[1]][1] - want[keys[0]][1])
+                             * disp[keys[1]],
+                             "matching_scores_fov": want[keys[2]][1] * disp[keys[2]]},
+                "int8_products": int8, "prob_max_abs_err": worst_prob,
+                "heading_err_deg": worst_heading}
+    finally:
+        clients.shutdown()
+        serve.build_server = build
+        if "srv" in started:
+            started["srv"].shutdown()
+            started["srv"].server_close()
+        thread.join(timeout=60)
+        if thread.is_alive():
+            raise AssertionError("serve --quantize int8 did not stop")
+
+
+def phase_quant(dev: dict, model: api.CVMModel, out: Path | None) -> dict:
+    """int8 post-training quantization of the ``model`` phase's VIGOR model
+    (a copy; batch 8, TF32 off unless said): ``quantize_int8`` on a seeded
+    batch (seconds); ``torch._int_mm``'s limits on this card; every int8
+    conv shape's sums against the plain version, exactly; ``predict_batch``
+    at the keys (180, 360), (36, 360) and (180, 180) through K1/K2 against
+    the plain matching (the same pixel for every sample, the ``model``
+    phase's tolerances; K1/K2 launches and int8 products counted from 0);
+    the int8 readout's distance from the float32 model's (not gated);
+    int8 against float32 pairs/s (TF32 off and on), peak GiB, device ms by
+    part; ``serve --quantize int8``'s requests/s and answers."""
+    import copy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    qmodel = api.CVMModel(cfg, copy.deepcopy(model.net), model.device)
+    calib = [_images(cfg, 2, seed=50)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qmodel.quantize_int8(calib)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    mods = [m for m in qmodel.net.modules() if isinstance(m, TL.QuantConv2d)]
+    if any(m.weight.device != next(model.net.parameters()).device for m in mods):
+        raise AssertionError("quantize_int8 left int8 convs off the model's device")
+    info = {"phase": "quant", "card": dev["nvidia_smi"], "preset": cfg.name, "batch": BATCH,
+            "calibration_pairs": 2, "calibration_seconds": calib_s, "int8_convs": len(mods),
+            "quantized_fraction": TQ.quantized_fraction(qmodel.net),
+            "int_mm_limits": _int_mm_limits()}
+    grd, sat = _images(cfg, BATCH, seed=60)
+    checks = _int8_conv_checks(qmodel, grd, sat)
+    info["int8_conv_checks"] = {k: v for k, v in checks.items() if k != "rows"}
+
+    # the main path, one key at a time, every count at 0 just before it
+    plain = api.CVMModel(cfg, qmodel.net, model.device, matching_impl="plain")
+    results, launches = [], {}
+    want_launches = quant_launches(cfg)
+    for key, want in want_launches.items():
+        kw = dict(ori_noise=key[0], fov=key[1])
+        MC.reset_launch_counts()
+        TL.reset_int8_counts()
+        poses = qmodel.predict_batch(grd, sat, return_heatmap=True, **kw)
+        counts, int8 = MC.launch_counts(), TL.int8_counts()
+        launches[key] = (counts["matching_epilogue"], counts["matching_scores"])
+        if launches[key] != want or int8 != {"mm": len(mods), "plain": 0}:
+            raise AssertionError(f"int8 VIGOR {kw}: (K1, K2) launches {launches[key]} (want "
+                                 f"{want}), int8 products {int8} (want {len(mods)} on the card)")
+        o, r = qmodel.forward_readout(grd, sat, return_heatmap=True, **kw)
+        ref, rr = plain.forward_readout(grd, sat, return_heatmap=True, **kw)
+        f32, _ = model.forward_readout(grd, sat, return_heatmap=True, **kw)
+        own = {"logits": _max_err(o.logits_flattened, f32.logits_flattened),
+               "ori": _max_err(o.ori, f32.ori),
+               "stacks": max(_max_err(a, b) for a, b in zip(o.matching_scores,
+                                                            f32.matching_scores))}
+        tol = {"heatmap": MODEL_TOL["heatmap"],
+               **{k: max(MODEL_TOL[k], QUANT_FLIP_SHARE * v) for k, v in own.items()}}
+        errs = _compare(f"int8 VIGOR {kw}", o, ref, r, rr, tol)
+        ref_poses = plain.predict_batch(grd, sat, return_heatmap=True, **kw)
+        f32_poses = model.predict_batch(grd, sat, **kw)
+        heading, hm = 0.0, 0.0
+        for p, q in zip(poses, ref_poses):
+            if (p.row, p.col) != (q.row, q.col) or not 0 <= p.probability <= 1:
+                raise AssertionError(f"int8 VIGOR {kw}: pose {p} vs plain {q}")
+            heading = max(heading, abs((p.orientation_deg - q.orientation_deg + 180) % 360 - 180))
+            hm = max(hm, float(np.abs(p.heatmap - q.heatmap).max()))
+        if heading > HEADING_TOL_DEG or hm > MODEL_TOL["heatmap"]:
+            raise AssertionError(f"int8 VIGOR {kw}: heading {heading} deg, heatmap {hm}")
+        px = [math.hypot(p.row - f.row, p.col - f.col) for p, f in zip(poses, f32_poses)]
+        deg = [abs((p.orientation_deg - f.orientation_deg + 180) % 360 - 180)
+               for p, f in zip(poses, f32_poses)]
+        results.append({"setting": kw, "launches": launches[key], "int8_products": int8,
+                        "max_abs_err": errs, "tolerance": tol, "int8_vs_float32_max_abs": own,
+                        "within_model_tolerance": {k: v <= MODEL_TOL[k] for k, v in errs.items()},
+                        "logits_over_model_tolerance": int(
+                            ((o.logits_flattened - ref.logits_flattened).abs()
+                             > MODEL_TOL["logits"]).sum()),
+                        "heading_err_deg": heading,
+                        "vs_float32": {"pixels_mean": statistics.mean(px), "pixels_max": max(px),
+                                       "same_pixel": sum(d == 0 for d in px),
+                                       "heading_deg_mean": statistics.mean(deg),
+                                       "heading_deg_max": max(deg)}})
+    info.update(results=results, model_tolerance=MODEL_TOL, flip_share=QUANT_FLIP_SHARE,
+                heading_tolerance_deg=HEADING_TOL_DEG,
+                launches={"matching_epilogue": sum(k1 for k1, _ in launches.values()),
+                          "matching_scores_prior": launches[(36.0, 360.0)][1]
+                          - launches[(180.0, 360.0)][1],
+                          "matching_scores_fov": launches[(180.0, 180.0)][1]})
+
+    # int8 against float32 in turns (f32, int8, int8, f32), TF32 off and on
+    timing = {}
+    for label, tf32 in (("tf32_off", False), ("cudnn_tf32_default", True)):
+        torch.backends.cudnn.allow_tf32 = tf32
+        f1, q1 = _pairs_per_s(model, grd, sat), _pairs_per_s(qmodel, grd, sat)
+        q2, f2 = _pairs_per_s(qmodel, grd, sat), _pairs_per_s(model, grd, sat)
+        timing[label] = {"float32_pairs_per_s": [f1, f2], "int8_pairs_per_s": [q1, q2],
+                         "int8_over_float32": (q1 + q2) / (f1 + f2)}
+    torch.backends.cudnn.allow_tf32 = False
+    peak = {}
+    for label, m in (("float32", model), ("int8", qmodel)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        m.predict_batch(grd, sat)
+        peak[label] = {"peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                       "above_resident_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30}
+    info.update(timing=timing, peak=peak, profile={
+        "int8": _quant_profile(qmodel, grd, sat, out),
+        "float32": _quant_profile(model, grd, sat, None)})
+    del qmodel, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="ccvpe_smoke_quant_") as tmp:
+        info["serve"] = _serve_int8(model, tmp)
+    info["seconds"] = time.perf_counter() - t_phase
+    emit(info)
+    return info
+
+
 def kernels_line(kern: dict, model: dict, presets: dict, train: dict, data: dict, cli: dict,
-                 dev: dict, options: dict | None = None, serve: dict | None = None) -> list[dict]:
+                 dev: dict, options: dict | None = None, serve: dict | None = None,
+                 quant: dict | None = None) -> list[dict]:
     """The rows of the ``kernels`` line: each kernel's times at its shapes
     (phase ``kernels``, ``model_presets``) and its launches on each main
     path, each counted from 0 just before that path ran."""
@@ -2256,6 +2684,15 @@ def kernels_line(kern: dict, model: dict, presets: dict, train: dict, data: dict
         summary[2]["launches_by_path"]["serve"] = serve["launches"]["matching_scores_fov"]
         for row in summary[1:3]:
             row["launches"] = sum(row["launches_by_path"].values())
+    # the int8 VIGOR model: predict_batch at the three keys, and served
+    if quant is not None:
+        for path, q in (("quant_predict_batch", quant["launches"]),
+                        ("quant_serve", quant["serve"]["launches"])):
+            summary[0]["launches_by_path"][path] = q["matching_epilogue"]
+            summary[1]["launches_by_path"][path] = q["matching_scores_prior"]
+            summary[2]["launches_by_path"][path] = q["matching_scores_fov"]
+        for row in summary[:3]:
+            row["launches"] = sum(row["launches_by_path"].values())
     idle = [(row["name"], path) for row in summary
             for path, n in row["launches_by_path"].items() if not n]
     if idle:
@@ -2294,13 +2731,14 @@ def main(argv=None) -> int:
         cli = phase_cli(dev, roots)
     timing = phase_timing(dev, net, args.out)
     serve = phase_serve(dev, net)
-    summary = kernels_line(kern, model, presets, train, data, cli, dev, options, serve)
+    quant = phase_quant(dev, net, args.out)
+    summary = kernels_line(kern, model, presets, train, data, cli, dev, options, serve, quant)
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(json.dumps(
             {"device": dev, "kernels": {k: v for k, v in kern.items() if k != "max_err"},
              "model": model, "model_presets": presets, "train": train,
              "train_options": options, "data": data, "cli": cli, "timing": timing,
-             "serve": serve,
+             "serve": serve, "quant": quant,
              "seconds": time.perf_counter() - t0}, indent=1))
     emit({"kernels": summary})
     print(dev["nvidia_smi"], flush=True)

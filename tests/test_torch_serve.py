@@ -4,7 +4,9 @@ port (NANO on the CPU, plain matching), micro-batching, the 413/411/408
 bounds and the 503 backpressure; the JAX soak test's counterpart is marked
 ``slow`` as there.  Each socket test keeps its own bound.  ``/predict`` is
 also held against the JAX service on the same exported ``.pt`` and image
-bytes, and the flags that are not ported exit naming their ROADMAP item."""
+bytes; ``--quantize int8 --calib_dir`` serves the int8 model (its reader
+against the JAX one); the flag that is not ported exits naming its ROADMAP
+item."""
 
 import base64
 import io
@@ -658,8 +660,7 @@ def test_abuse_soak_mixed_traffic():
         service.stop()
 
 
-@pytest.mark.parametrize("flags,item", [(["--quantize", "int8"], "item 8"),
-                                        (["--mesh", "data"], "item 7")])
+@pytest.mark.parametrize("flags,item", [(["--mesh", "data"], "item 7")])
 def test_unported_flags_exit_naming_their_roadmap_item(flags, item, monkeypatch):
     monkeypatch.setenv("CCVPE_PLATFORM", "cpu")
     with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1 {item}"):
@@ -699,17 +700,98 @@ def test_main_serves_on_the_cpu_switch(monkeypatch, tmp_path):
     assert started["health"]["batch"] == 2
 
 
-class _OneShot:
-    """A server whose ``serve_forever`` answers one /healthz and returns."""
+def _write_calibration_dirs(root, rng):
+    """The two --calib_dir layouts: flat <stem>_grd/<stem>_sat files (three
+    pairs, one grd without its sat) and grd/ + sat/ subdirectories."""
+    import os
 
-    def __init__(self, srv, record):
-        self._srv, self._record = srv, record
+    flat, sub = root / "flat", root / "sub"
+    os.makedirs(flat)
+    for i in range(3):
+        Image.fromarray(rng.integers(0, 255, (40, 80, 3), dtype=np.uint8)).save(flat / f"s{i}_grd.png")
+        Image.fromarray(rng.integers(0, 255, (64, 64, 3), dtype=np.uint8)).save(flat / f"s{i}_sat.png")
+    Image.fromarray(rng.integers(0, 255, (40, 80, 3), dtype=np.uint8)).save(flat / "lone_grd.png")
+    for d in ("grd", "sat"):
+        os.makedirs(sub / d)
+    for name in ("a.png", "b.jpg"):
+        Image.fromarray(rng.integers(0, 255, (70, 150, 3), dtype=np.uint8)).save(sub / "grd" / name)
+        Image.fromarray(rng.integers(0, 255, (*cvm.NANO.sat_hw, 3), dtype=np.uint8)
+                        ).save(sub / "sat" / name)
+    return flat, sub
+
+
+def test_load_calibration_pairs_both_layouts_equal_jax(tmp_path):
+    """``--calib_dir``'s reader against ``ccvpe_tpu.serve.load_calibration_pairs``:
+    the same pairs, resized to model shapes, equal arrays; a directory
+    without pairs raises."""
+    from ccvpe_tpu import serve as jserve
+
+    flat, sub = _write_calibration_dirs(tmp_path, np.random.default_rng(14))
+    for root, n, want_n in ((flat, 2, 2), (flat, 16, 3), (sub, 16, 2)):
+        got = serve.load_calibration_pairs(str(root), cvm.NANO, n=n)
+        want = jserve.load_calibration_pairs(str(root), cvm.NANO, n=n)
+        assert len(got) == len(want) == 1
+        assert got[0][0].shape == (want_n, *cvm.NANO.grd_hw, 3) and got[0][0].dtype == np.uint8
+        assert got[0][1].shape == (want_n, *cvm.NANO.sat_hw, 3)
+        for a, b in zip(got[0], want[0]):
+            np.testing.assert_array_equal(a, b)
+    with pytest.raises(FileNotFoundError, match="no calibration pairs"):
+        serve.load_calibration_pairs(str(sub / "grd"), cvm.NANO)
+
+
+def test_main_quantize_int8_on_the_cpu_switch(monkeypatch, tmp_path, capsys):
+    """``serve --quantize int8 --calib_dir D`` on the CPU switch (NANO):
+    the service holds the int8 model, and its /predict answers equal that
+    model's own ``predict_batch``, through the int8 products."""
+    from ccvpe_torch.nn import layers as TL
+    from ccvpe_torch.nn.quant import quantized_fraction
+
+    flat, _ = _write_calibration_dirs(tmp_path, np.random.default_rng(15))
+    monkeypatch.setenv("CCVPE_PLATFORM", "cpu")
+    rng = np.random.default_rng(16)
+    grd = rng.integers(0, 255, (*cvm.NANO.grd_hw, 3), dtype=np.uint8)
+    sat = rng.integers(0, 255, (*cvm.NANO.sat_hw, 3), dtype=np.uint8)
+    started = {}
+
+    def build(service, host, port, **kw):
+        srv = serve.ThreadingHTTPServer((host, 0), serve.make_handler(service, **kw))
+        started["url"] = f"http://127.0.0.1:{srv.server_address[1]}"
+        started["service"] = service
+        return _OneShot(srv, started, {"grd": _b64_png(grd), "sat": _b64_png(sat),
+                                       "ori_noise": 36.0})
+
+    monkeypatch.setattr(serve, "build_server", build)
+    TL.reset_int8_counts()
+    serve.main(["--preset", "NANO", "--host", "127.0.0.1", "--matching_impl", "plain",
+                "--quantize", "int8", "--calib_dir", str(flat), "--calib_samples", "2"])
+    assert "int8 PTQ calibrated on 2 real pairs" in capsys.readouterr().out
+    model = started["service"].model
+    assert quantized_fraction(model.net) > 0.5
+    n_int8 = sum(isinstance(m, TL.QuantConv2d) for m in model.net.modules())
+    # calibration runs the float convs; the served forward runs every int8 one
+    assert TL.int8_counts() == {"mm": 0, "plain": n_int8}
+    want = model.predict_batch(grd[None], sat[None], ori_noise=36.0)[0]
+    got = started["predict"]
+    assert (got["row"], got["col"]) == (want.row, want.col)
+    assert got["probability"] == want.probability
+    assert got["orientation_deg"] == want.orientation_deg
+
+
+class _OneShot:
+    """A server whose ``serve_forever`` answers one /healthz (and one
+    /predict of ``payload``, if given) and returns."""
+
+    def __init__(self, srv, record, payload=None):
+        self._srv, self._record, self._payload = srv, record, payload
 
     def serve_forever(self):
         t = threading.Thread(target=self._srv.serve_forever, daemon=True)
         t.start()
         with urllib.request.urlopen(self._record["url"] + "/healthz", timeout=30) as r:
             self._record["health"] = json.loads(r.read())
+        if self._payload is not None:
+            code, self._record["predict"] = _post(self._record["url"], self._payload)
+            assert code == 200, self._record["predict"]
         self._srv.shutdown()
         self._srv.server_close()
 
