@@ -10,7 +10,9 @@ Images are uint8 RGB arrays (HWC); ``predict`` resizes them on the host,
 ``predict_batch`` takes model-sized batches.  Normalisation, the forward and
 the pose readout run on the model's device under ``torch.inference_mode``.
 ``model.quantize_int8(calib)`` turns a serving model into its int8
-post-training-quantized form.
+post-training-quantized form.  ``load_model(..., mesh="data")`` serves
+from one replica per visible CUDA device (``predict_batch`` splits the
+batch over them).
 """
 
 from __future__ import annotations
@@ -45,16 +47,47 @@ def _ori_noise_to_n(ori_noise: float) -> int | None:
     return int(ori_noise // 18)
 
 
+def mesh_devices(mesh) -> list[torch.device]:
+    """The devices of a serving mesh: ``"data"`` is every visible CUDA
+    device; a list names them (one replica each, a device may repeat)."""
+    if mesh == "data":
+        if not torch.cuda.is_available():
+            raise RuntimeError("mesh='data' places one replica per CUDA device and none is "
+                               "available; pass a list of devices")
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devices = [resolve_device(d) for d in mesh]
+    if not devices:
+        raise ValueError("a serving mesh needs at least one device")
+    return devices
+
+
 class CVMModel:
     def __init__(self, cfg: cvm.CVMConfig, net: cvm.CVM, device: torch.device,
-                 matching_impl: str = "kernel"):
+                 matching_impl: str = "kernel", mesh=None):
         """``net`` in eval mode on ``device``.  ``matching_impl``: 'kernel'
         (the CUDA kernels on a CUDA device) or 'plain' (their plain
-        PyTorch versions)."""
+        PyTorch versions).
+
+        ``mesh`` (JAX ``mesh=``): ``"data"`` or a list of devices -- one
+        replica of ``net`` per device (``net`` itself is the first, on the
+        first device).  ``predict_batch`` splits a batch that the replica
+        count divides into contiguous slices, one per replica, and joins
+        the readouts in order; any other batch runs on the first replica,
+        as JAX falls back to replicated placement."""
         self.cfg = cfg
+        self.matching_impl = matching_impl
+        self.mesh = None if mesh is None else mesh_devices(mesh)
+        if self.mesh is not None:
+            from .parallel.mesh import replicate
+
+            nets = replicate(net, self.mesh)
+            net, device = nets[0], self.mesh[0]
+            self.replicas = [self] + [CVMModel(cfg, n, d, matching_impl)
+                                      for n, d in zip(nets[1:], self.mesh[1:])]
+        else:
+            self.replicas = [self]
         self.net = net
         self.device = device
-        self.matching_impl = matching_impl
 
     def forward_readout(self, grd: np.ndarray, sat: np.ndarray, *,
                         ori_noise: float = 180.0, fov: float = 360.0,
@@ -83,9 +116,16 @@ class CVMModel:
 
         ``fov < 360`` crops the panorama to its leading ``fov/360`` width
         and turns the ground encoder's circular padding off."""
-        _, r = self.forward_readout(grd, sat, ori_noise=ori_noise, fov=fov,
-                                    return_heatmap=return_heatmap)
-        r = {k: v.cpu().numpy() for k, v in r.items()}
+        n = len(self.replicas)
+        kw = dict(ori_noise=ori_noise, fov=fov, return_heatmap=return_heatmap)
+        if n > 1 and grd.shape[0] % n == 0:
+            # every replica's forward is issued before any readout is fetched
+            rs = [rep.forward_readout(g, s, **kw)[1] for rep, g, s in
+                  zip(self.replicas, np.split(grd, n), np.split(sat, n))]
+            r = {k: np.concatenate([ri[k].cpu().numpy() for ri in rs]) for k in rs[0]}
+        else:
+            _, r = self.forward_readout(grd, sat, **kw)
+            r = {k: v.cpu().numpy() for k, v in r.items()}
         poses = []
         for i in range(grd.shape[0]):
             ang, valid = angle_from_cos_sin(r["cos"][i], r["sin"][i])
@@ -137,6 +177,12 @@ class CVMModel:
         with torch.inference_mode():
             ranges = quant.calibrate(self.net, calib, forward)
         quant.quantize_params(self.net, ranges, select=policy)
+        if self.mesh is not None:
+            # every replica the same int8 model (JAX: the quantized tree replicated)
+            from .parallel.mesh import replicate
+
+            for rep, net in zip(self.replicas[1:], replicate(self.net, self.mesh)[1:]):
+                rep.net = net
         return self
 
     def _normalized(self, images: np.ndarray) -> torch.Tensor:
@@ -177,7 +223,7 @@ def _prepare(img: np.ndarray, hw) -> np.ndarray:
 
 def load_model(checkpoint_path: str | None = None, preset: str = "VIGOR",
                seed: int = 0, device: str | torch.device | None = None,
-               matching_impl: str = "kernel") -> CVMModel:
+               matching_impl: str = "kernel", mesh=None) -> CVMModel:
     """A model from a reference-format ``.pt`` checkpoint, from the newest
     step of a training checkpoint directory (``io.checkpoint``; float32 or
     bfloat16 parameters), or seeded random weights
@@ -187,8 +233,10 @@ def load_model(checkpoint_path: str | None = None, preset: str = "VIGOR",
     The model runs in float32: bfloat16 parameters are read into float32
     exactly, which is what the JAX model does when it casts them to its
     float32 inputs at each op.  ``matching_impl``: 'kernel' (the CUDA
-    kernels on a CUDA device) or 'plain'."""
-    device = resolve_device(device)
+    kernels on a CUDA device) or 'plain'.  ``mesh``: ``"data"`` or a list
+    of devices, one replica each (``CVMModel``); it takes the place of
+    ``device``."""
+    device = mesh_devices(mesh)[0] if mesh is not None else resolve_device(device)
     cfg = cvm.PRESETS[preset]
     net = cvm.CVM(cfg)
     if checkpoint_path is None:
@@ -208,4 +256,4 @@ def load_model(checkpoint_path: str | None = None, preset: str = "VIGOR",
         raise ValueError(f"expected a .pt checkpoint or a checkpoint directory, "
                          f"got {checkpoint_path!r}")
     net = net.eval().to(device=device, memory_format=torch.channels_last)
-    return CVMModel(cfg, net, device, matching_impl=matching_impl)
+    return CVMModel(cfg, net, device, matching_impl=matching_impl, mesh=mesh)

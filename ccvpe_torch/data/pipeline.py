@@ -21,18 +21,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-
-
-def _process_count() -> int:
-    """The ``torch.distributed`` world size, or 1 without a process group."""
-    dist = torch.distributed
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
-
-
-def _process_index() -> int:
-    """The ``torch.distributed`` rank, or 0 without a process group."""
-    dist = torch.distributed
-    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+# the ``torch.distributed`` world size and rank (1 and 0 without a group)
+from ..parallel.mesh import rank as _process_index, world_size as _process_count
 
 
 def collate(samples: list[dict]) -> dict:

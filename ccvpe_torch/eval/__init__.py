@@ -10,7 +10,8 @@ Each configuration runs the eval path of the port's CLI for its dataset
 (``ccvpe_torch.train_VIGOR``, ``train_KITTI``, ``train_OxfordRobotCar``)
 in this process, with the flags of the reference's protocols, so the
 report holds what those entry points measure.  A configuration that fails
-is recorded and the others still run.
+is recorded and the others still run.  Under ``torchrun`` every rank runs
+every configuration and rank 0 writes the report.
 """
 
 from __future__ import annotations
@@ -86,8 +87,16 @@ def build_configs(args) -> list[dict]:
 
 
 def run_config(cfg: dict) -> dict:
-    """Run one config's CLI ``main``; a failure is recorded, not raised."""
+    """Run one config's CLI ``main``; a failure is recorded, not raised.
+
+    Each CLI ``main`` ends at ``parallel.mesh.finalize_run``, a counted
+    barrier of every rank.  A rank whose run failed before reaching it
+    catches up on its count here, so the ranks stay in step for the
+    configurations after it."""
+    from ..parallel import mesh
+
     mod = importlib.import_module(cfg["module"])
+    expect = mesh.finalize_count() + (len(cfg["sub"]) if "sub" in cfg else 1)
     t0 = time.time()
     try:
         if "sub" in cfg:
@@ -99,16 +108,23 @@ def run_config(cfg: dict) -> dict:
         metrics, status = {"error": str(e)}, "failed"
     except Exception as e:  # noqa: BLE001 -- recorded so the other configs still run
         metrics, status = {"error": f"{type(e).__name__}: {e}"}, "failed"
+    while mesh.finalize_count() < expect:
+        try:
+            mesh.finalize_run()
+        except Exception:  # noqa: BLE001 -- the barrier timed out: peers died; keep reporting
+            break
     return {"id": cfg["id"], "name": cfg["name"], "status": status,
             "wall_s": round(time.time() - t0, 3), "metrics": metrics}
 
 
 def run(args) -> dict:
+    from ..parallel import mesh
+
     report = {"harness": "ccvpe_torch.eval", "baseline": "BASELINE.json configs 1-5",
               "results": [run_config(c) for c in build_configs(args)]}
     report["n_ok"] = sum(r["status"] == "ok" for r in report["results"])
     report["n_failed"] = sum(r["status"] == "failed" for r in report["results"])
-    if args.out:
+    if args.out and mesh.rank() == 0:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=2, default=str)
         print(f"wrote {args.out}")

@@ -33,9 +33,14 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
+    from ..parallel import mesh
+
+    mesh.maybe_init_distributed()
     report = run(parse_args(argv))
     for r in report["results"]:
         print(f"[{r['status']}] config {r['id']}: {r['name']} ({r['wall_s']}s)")
+    # the per-config CLIs finalize already; this covers the report's write
+    mesh.finalize_run("eval-runner-complete")
     return report
 
 

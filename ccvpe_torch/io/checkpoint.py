@@ -17,8 +17,12 @@ Every file is written to a temporary name and renamed into place, so a
 save cut short never shows as a step.  A sidecar ``latest_meta.json``
 holds the newest save's position (epoch, completed); it is replaced only
 after its step's state file has landed, and is trusted only for that step.
-Saves are synchronous.  Under ``torch.distributed`` only rank 0 writes
-(the state is replicated); every rank reads.
+Saves are synchronous.  Under ``torch.distributed`` every rank gathers
+the whole state (a ZeRO-1 optimizer's slices, ``parallel.zero``; an FSDP2
+model's and its Adam's shards, ``parallel.distribute``) and rank 0 writes
+it, then the sidecar: a checkpoint of any layout is the file a one-device
+run writes, and restores into any layout (each rank reads the whole file
+and keeps its own shards).
 
 The JAX package's orbax checkpoints are not readable here: the format
 the two packages share is the reference ``.pt`` of the weights
@@ -34,6 +38,9 @@ import re
 import torch
 
 from ..data.pipeline import _process_index
+from ..parallel.distribute import (full_state, is_sharded, load_full_optimizer_state,
+                                   load_full_state)
+from ..parallel.mesh import is_distributed
 
 META = "latest_meta.json"
 _STEP_FILE = re.compile(r"^ckpt_(\d+)\.pt$")
@@ -55,7 +62,8 @@ class CheckpointManager:
 
     ``max_to_keep``: the newest steps retained; ``None`` or 0 keeps every
     step (the reference keeps every epoch's file).  Only the process of
-    rank 0 (``torch.distributed``; 0 without a process group) writes."""
+    rank 0 (``torch.distributed``; 0 without a process group) writes;
+    under a process group every rank calls ``save``."""
 
     def __init__(self, directory: str, max_to_keep: int | None = 3):
         self._dir = os.path.abspath(directory)
@@ -69,17 +77,20 @@ class CheckpointManager:
         sidecar ``meta`` (when given), then drop steps past
         ``max_to_keep``.  Synchronous: ``wait`` is accepted for the JAX
         signature and has nothing to wait for."""
-        if _process_index() != 0:
-            return
-        os.makedirs(self._dir, exist_ok=True)
-        payload = {"step": int(state.step), "model": state.model.state_dict(),
-                   "optimizer": state.optimizer.state_dict()}
-        _atomic_write(self.path(step), lambda tmp: torch.save(payload, tmp))
-        if meta is not None:
-            self.save_meta(step, meta)
-        if self.max_to_keep:
-            for old in self.all_steps()[:-self.max_to_keep]:
-                os.remove(self.path(old))
+        # a collective under a process group: every rank gathers, rank 0
+        # writes, and every rank returns once the file is there
+        payload = {"step": int(state.step), "model": full_state(state.model.state_dict()),
+                   "optimizer": full_state(state.optimizer.state_dict())}
+        if _process_index() == 0:
+            os.makedirs(self._dir, exist_ok=True)
+            _atomic_write(self.path(step), lambda tmp: torch.save(payload, tmp))
+            if meta is not None:
+                self.save_meta(step, meta)
+            if self.max_to_keep:
+                for old in self.all_steps()[:-self.max_to_keep]:
+                    os.remove(self.path(old))
+        if is_distributed():
+            torch.distributed.barrier()
 
     def save_meta(self, step: int, meta: dict) -> None:
         """(Re)write the sidecar for ``step``, whose state file must have
@@ -138,8 +149,12 @@ class CheckpointManager:
                 f"{saved['model'][differ[0]].dtype}, the model in {live[differ[0]].dtype} "
                 f"({len(differ)} tensors differ): resume with the parameter dtype it "
                 "was trained with (--bf16_params)")
-        state.model.load_state_dict(saved["model"], strict=True)
-        state.optimizer.load_state_dict(saved["optimizer"])
+        if is_sharded(state.model):
+            load_full_state(state.model, saved["model"])
+            load_full_optimizer_state(state.model, state.optimizer, saved["optimizer"])
+        else:
+            state.model.load_state_dict(saved["model"], strict=True)
+            state.optimizer.load_state_dict(saved["optimizer"])
         state.step = int(saved["step"])
         return state
 

@@ -22,6 +22,11 @@ input BatchNorm follows ``bn_apply`` op by op: batch statistics from the
 bfloat16 activations (summed in float32, rounded to bfloat16), folded into
 float32 running statistics; the normalisation in bfloat16.
 
+In training under a process group of more than one rank (``parallel``)
+BatchNorm's statistics are the global batch's, as the JAX mesh's are, and
+drop-connect draws the global batch's uniforms; without one nothing here
+communicates.
+
 ``QuantConv2d`` is the int8 conv of post-training quantization
 (``nn/quant.py``; JAX ``_conv_apply_int8``), with JAX's op order and
 rounding: the same codes and int32 sums from the same inputs.
@@ -43,6 +48,8 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
+
+from ..parallel.mesh import all_reduce_sum, is_distributed, rank, world_size
 
 Pad2d = tuple[tuple[int, int], tuple[int, int]]
 
@@ -319,10 +326,31 @@ def _recomputing() -> bool:
     return getattr(_REMAT, "depth", 0) > 0
 
 
+def global_batch_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Float32 per-channel mean and biased variance of an NCHW batch over
+    the whole process group, and the global count: the mean from an
+    all-reduced sum, the variance two-pass as ``jnp.var`` (an all-reduced
+    sum of squared deviations from the global mean).  Differentiable: the
+    backward all-reduces the incoming gradients (``parallel.mesh``).
+    Every rank's batch has the same size, as the mesh's shards do."""
+    xf = x.float()
+    n = xf.numel() // xf.shape[1] * world_size()
+    mean = all_reduce_sum(xf.sum(dim=(0, 2, 3))) / n
+    var = all_reduce_sum((xf - mean.view(1, -1, 1, 1)).square().sum(dim=(0, 2, 3))) / n
+    return mean, var, n
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` (its state-dict keys, running statistics in float32)
     with the JAX package's dtype rules and a recompute that leaves the
-    running statistics alone."""
+    running statistics alone.
+
+    In training under a process group of more than one rank the statistics
+    are the global batch's (``global_batch_stats``), as ``bn_apply`` over
+    the JAX mesh's whole batch: the running variance takes the global
+    count, and the recompute of a rematerialised block all-reduces again
+    without folding.  Without one, the paths are ``nn.BatchNorm2d``'s own
+    (float32) and ``_forward_low_precision``."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         update = self.training and not _recomputing()
@@ -331,8 +359,9 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.num_batches_tracked.add_(1)
             factor = (self.momentum if self.momentum is not None
                       else 1.0 / float(self.num_batches_tracked))
-        if x.dtype != torch.float32:
-            return self._forward_low_precision(x, update, factor)
+        distributed = self.training and is_distributed()
+        if x.dtype != torch.float32 or distributed:
+            return self._forward_low_precision(x, update, factor, distributed)
         mean, var = self.running_mean, self.running_var
         if self.training and not update:
             # the recompute normalises as the forward did; its fold goes to copies
@@ -340,14 +369,21 @@ class BatchNorm2d(nn.BatchNorm2d):
         return F.batch_norm(x, mean, var, _like(self.weight, x), _like(self.bias, x),
                             self.training, factor, self.eps)
 
-    def _forward_low_precision(self, x, update: bool, factor: float) -> torch.Tensor:
-        """``bn_apply`` on a bfloat16 input, with JAX's type promotions."""
+    def _forward_low_precision(self, x, update: bool, factor: float,
+                               distributed: bool = False) -> torch.Tensor:
+        """``bn_apply`` op by op, with JAX's type promotions: a bfloat16
+        input, or any input whose batch statistics are global
+        (``distributed``)."""
         if self.training:
-            xf = x.float()
-            mean = xf.mean(dim=(0, 2, 3)).to(x.dtype)
-            var = xf.var(dim=(0, 2, 3), unbiased=False).to(x.dtype)
-            if update:
+            if distributed:
+                mean, var, n = global_batch_stats(x)
+                mean, var = mean.to(x.dtype), var.to(x.dtype)
+            else:
+                xf = x.float()
+                mean = xf.mean(dim=(0, 2, 3)).to(x.dtype)
+                var = xf.var(dim=(0, 2, 3), unbiased=False).to(x.dtype)
                 n = x.numel() // x.shape[1]
+            if update:
                 unbiased = var.detach() * (n / max(n - 1, 1))
                 with torch.no_grad():
                     self.running_mean.copy_((1 - factor) * self.running_mean
@@ -426,9 +462,15 @@ def drop_connect(x: torch.Tensor, rate: float, u: torch.Tensor) -> torch.Tensor:
 
 def drop_connect_random(x: torch.Tensor, rate: float,
                         generator: torch.Generator) -> torch.Tensor:
-    """``drop_connect`` with ``u`` drawn from ``generator`` (on x's device)."""
-    u = torch.rand((x.shape[0], 1, 1, 1), generator=generator, device=x.device,
+    """``drop_connect`` with ``u`` drawn from ``generator`` (on x's device).
+    In training under a process group every rank draws the global batch's
+    ``u`` (the ranks' generators are seeded alike) and keeps its own rows:
+    the draws of one device at the global batch."""
+    b, world = x.shape[0], world_size()
+    u = torch.rand((b * world, 1, 1, 1), generator=generator, device=x.device,
                    dtype=x.dtype)
+    if world > 1:
+        u = u[rank() * b:(rank() + 1) * b]
     return drop_connect(x, rate, u)
 
 

@@ -8,7 +8,9 @@ framework; counterpart of ``ccvpe_tpu/serve.py``):
 It runs on the CUDA device (through the matching kernels, ``--matching_impl
 kernel``) unless ``CCVPE_PLATFORM=cpu``; without CUDA and without that
 switch it raises.  ``--checkpoint`` takes a reference-format ``.pt`` or a
-training checkpoint directory (``api.load_model``).
+training checkpoint directory (``api.load_model``).  ``--mesh data`` serves
+from one replica per visible card (``api.CVMModel(mesh=)``): a batch of N
+splits over them.
 
 Endpoints:
   GET  /healthz   -> {"status": "ok", "preset": ..., "device": ...}
@@ -262,6 +264,7 @@ class PoseService:
             keys = sorted(self.batchers) if self.batchers is not None else []
         return {"status": "ok", "preset": self.preset,
                 "device": str(self.model.device),
+                "replicas": len(self.model.replicas),
                 "batch": self.batch if self.batchers is not None else 1,
                 "batcher_keys": keys,
                 "grd_hw": list(self.model.cfg.grd_hw),
@@ -498,6 +501,14 @@ def build_server(service: PoseService, host: str = "127.0.0.1",
         make_handler(service, max_body_bytes, request_timeout))
 
 
+def serve_mesh(mesh: str, device):
+    """``--mesh data``: every visible CUDA device; on the CPU
+    (``CCVPE_PLATFORM=cpu``) two CPU replicas, so the split path runs."""
+    if not mesh:
+        return None
+    return "data" if device.type == "cuda" else [device, device]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--checkpoint", default=None,
@@ -508,7 +519,9 @@ def main(argv=None):
                     help="orientation matching: the CUDA kernels (on a CUDA device) or "
                          "their plain PyTorch versions")
     ap.add_argument("--mesh", default="", choices=["", "data"],
-                    help="not ported to ccvpe_torch yet: exits")
+                    help="'data': one model replica per visible CUDA device; batched "
+                         "inference splits over them (pairs well with --batch N "
+                         "for full mesh batches)")
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=8571)
     ap.add_argument("--batch", type=int, default=1,
@@ -548,15 +561,14 @@ def main(argv=None):
                          "it); idle connections close, a body stall gets "
                          "408 (bounds per-connection time)")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise SystemExit("--mesh is not ported to ccvpe_torch yet "
-                         "(ROADMAP.md Queue 1 item 7)")
 
     from . import api
     from .train.cli import cli_device
 
-    model = api.load_model(args.checkpoint, preset=args.preset, device=cli_device(),
-                           matching_impl=args.matching_impl)
+    device = cli_device()
+    model = api.load_model(args.checkpoint, preset=args.preset, device=device,
+                           matching_impl=args.matching_impl,
+                           mesh=serve_mesh(args.mesh, device))
     if args.quantize == "int8":
         if args.calib_dir:
             calib = load_calibration_pairs(args.calib_dir, model.cfg,

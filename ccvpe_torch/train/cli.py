@@ -1,9 +1,12 @@
 """What the three train/eval CLIs of the port share
 (``ccvpe_torch.train_VIGOR``, ``train_KITTI``, ``train_OxfordRobotCar``;
 counterparts of the root ``train_*.py`` of the JAX package): the framework
-flags, the device, the flags whose features are not ported yet, the
-``Trainer`` built from the flags, the model of an eval run, and the epoch
-orders of a training run.
+flags, the device, the ``Trainer`` built from the flags, the model of an
+eval run, the epoch orders of a training run, and ``run_main``, which
+joins the process group of a ``torchrun`` launch before a CLI's body and
+meets the other ranks at ``finalize_run`` after it:
+
+    torchrun --nproc_per_node 8 -m ccvpe_torch.train_VIGOR --dataset_root ... -b 64
 """
 
 from __future__ import annotations
@@ -14,10 +17,8 @@ import os
 import numpy as np
 import torch
 
+from ..parallel import mesh
 from .harness import Trainer
-
-# flags whose features the port lacks, with the ROADMAP.md item that ports them
-NOT_PORTED = {"zero1": "Queue 1 item 7", "n_model": "Queue 1 item 7"}
 
 
 def add_common_flags(p: argparse.ArgumentParser, *, test_model_path: str,
@@ -66,9 +67,12 @@ def add_common_flags(p: argparse.ArgumentParser, *, test_model_path: str,
     p.add_argument("--matching_impl", default="kernel", choices=("kernel", "plain"),
                    help="orientation matching: the CUDA kernels (on a CUDA "
                         "device) or their plain PyTorch versions")
-    not_ported = "not ported to ccvpe_torch yet: exits"
-    p.add_argument("--zero1", action="store_true", help=not_ported)
-    p.add_argument("--n_model", type=int, default=1, help=f"values > 1 are {not_ported}")
+    p.add_argument("--zero1", action="store_true",
+                   help="ZeRO-1: shard the optimizer state (Adam moments, the f32 "
+                        "master) over the data-parallel ranks")
+    p.add_argument("--n_model", type=int, default=1,
+                   help="ranks per model replica: shard large weights and their "
+                        "optimizer state over them (FSDP2); must divide the world size")
     p.add_argument("--bf16", action="store_true",
                    help="train in bfloat16 (inputs and activations; the loss in float32)")
     p.add_argument("--bf16_params", action="store_true",
@@ -84,14 +88,14 @@ def add_common_flags(p: argparse.ArgumentParser, *, test_model_path: str,
                         "when given bare), only the encoders, or only the decoder stages")
 
 
-def parse(p: argparse.ArgumentParser, argv=None) -> argparse.Namespace:
-    """Parse ``argv``; exit, naming the ROADMAP item, when a flag whose
-    feature is not ported is set."""
-    args = p.parse_args(argv)
-    for flag, item in NOT_PORTED.items():
-        if getattr(args, flag) != p.get_default(flag):
-            raise SystemExit(f"--{flag} is not ported to ccvpe_torch yet (ROADMAP.md {item})")
-    return args
+def run_main(body, argv=None):
+    """A CLI's ``main``: join the process group that ``torchrun`` sets up
+    (``parallel.mesh.maybe_init_distributed``; a no-op otherwise), run
+    ``body(argv)``, then meet every rank at ``finalize_run``."""
+    mesh.maybe_init_distributed()
+    ret = body(argv)
+    mesh.finalize_run()
+    return ret
 
 
 def cli_device() -> torch.device:
@@ -116,6 +120,7 @@ def make_trainer(cfg, args, *, label: str, checkpoint_dir: str, device) -> Train
         checkpoint_every_steps=args.checkpoint_every_steps,
         keep_checkpoints=args.keep_checkpoints, profile_dir=args.profile_dir or None,
         grad_accum=args.grad_accum, matching_impl=args.matching_impl, device=device,
+        zero1=args.zero1, n_model=args.n_model,
         compute_dtype="bfloat16" if args.bf16 else "float32",
         param_dtype="bfloat16" if args.bf16_params else "float32",
         remat=args.remat or False)

@@ -1,5 +1,5 @@
 """The trainer and evaluator of the three CLIs (counterpart of
-``ccvpe_tpu/train/harness.py``), on one device.
+``ccvpe_tpu/train/harness.py``).
 
 One harness drives any dataset: host ``Loader`` -> ``device_prefetch``
 (batch N+1 copied and assembled on a side stream while step N runs) ->
@@ -8,13 +8,21 @@ every N steps; evaluation through the fused eval-readout step; and the
 reference's results files (one scalar appended per epoch) plus a JSON
 summary per epoch.
 
-The JAX trainer's device mesh has no counterpart: this one runs on
-``device`` (default ``cuda``).  Its tensor-parallel and ZeRO-1 options are
-not ported yet and raise.  ``compute_dtype='bfloat16'`` trains in
-bfloat16, ``param_dtype='bfloat16'`` keeps the parameters in bfloat16 with
-a float32 master in the optimizer, ``remat`` recomputes the chosen scope in
-the backward (``train.loop``); evaluation always takes float32 inputs, so
-bfloat16 parameters evaluate cast to float32 at each op.
+It runs on ``device`` (default ``cuda``: under ``torchrun``, this rank's
+card).  Where the JAX trainer lays its state out over a device mesh, this
+one runs as one process per device under ``torch.distributed``
+(``parallel.mesh.maybe_init_distributed``): each rank loads its slice of
+every global batch, the step is DDP's with global BatchNorm statistics
+and loss normalizers (``train.loop``); ``zero1`` shards Adam's state over
+the ranks (``parallel.zero``), ``n_model`` shards the model with FSDP2
+(``parallel.distribute``); evaluation gathers every rank's readouts, so
+every rank's summary is the global one, and rank 0 alone writes files.
+Without a process group all of that is off and nothing is reduced.
+``compute_dtype='bfloat16'`` trains in bfloat16, ``param_dtype='bfloat16'``
+keeps the parameters in bfloat16 with a float32 master in the optimizer,
+``remat`` recomputes the chosen scope in the backward (``train.loop``);
+evaluation always takes float32 inputs, so bfloat16 parameters evaluate
+cast to float32 at each op.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import torch
 from .. import resolve_device
 from ..data.pipeline import _process_index, device_prefetch
 from ..io.checkpoint import CheckpointManager
+from ..parallel import mesh
 from ..utils import profiling
 from . import loop as train_loop
 from .metrics import PoseErrorAccumulator
@@ -41,10 +50,6 @@ def append_result(results_dir: str, name: str, epoch: int, value: float, header:
     os.makedirs(results_dir, exist_ok=True)
     with open(os.path.join(results_dir, name), "ab") as f:
         np.savetxt(f, [value], fmt="%4f", header=header, comments=f"{epoch}_")
-
-
-def _not_ported(what: str, item: str) -> ValueError:
-    return ValueError(f"{what} is not ported to ccvpe_torch yet (ROADMAP.md Queue 1 {item})")
 
 
 class Trainer:
@@ -62,13 +67,31 @@ class Trainer:
         ``matching_impl``: 'kernel' (the CUDA kernels on a CUDA device) or
         'plain'.  ``keep_checkpoints``: retained checkpoints, ``None``/0
         keeps every step.  ``checkpoint_every_steps``: also save mid-epoch
-        (0: at epoch ends only)."""
-        if n_model != 1:
-            raise _not_ported(f"n_model={n_model} (tensor parallelism)", "item 7")
-        if zero1:
-            raise _not_ported("zero1 (sharded optimizer state)", "item 7")
+        (0: at epoch ends only).  ``batch_size`` is the global batch.
+
+        Under a process group: ``n_model > 1`` shards the model over that
+        many ranks with FSDP2 (``parallel.distribute``; with ``zero1`` too,
+        over every rank); ``zero1`` shards Adam's state (and the float32
+        master) over the ranks (``parallel.zero``).  Neither changes the
+        numbers.  Without one (a single device) both are no-ops, as on a
+        one-device JAX mesh."""
+        world = mesh.world_size()
+        if n_model < 1 or world % n_model:
+            raise ValueError(f"n_model={n_model} must be a positive divisor of the "
+                             f"device count ({world})")
+        if batch_size and batch_size % n_model:
+            raise ValueError(f"global batch {batch_size} must be divisible by "
+                             f"n_model={n_model} (the batch shards over the whole mesh)")
         if batch_size and batch_size % grad_accum:
             raise ValueError(f"batch {batch_size} must be divisible by grad_accum={grad_accum}")
+        if batch_size and batch_size % (world * grad_accum):
+            raise ValueError(
+                f"global batch {batch_size} with grad_accum={grad_accum} leaves "
+                f"microbatches of {batch_size // grad_accum} that do not divide the "
+                f"{world}-device mesh; every microbatch must divide the mesh "
+                f"(batch % (mesh * grad_accum) == 0) or grouped-conv gradients mis-reduce")
+        self.n_model = n_model
+        self.zero1 = zero1
         self.model_cfg = model_cfg
         self.device = resolve_device(device)
         self.learning_rate = learning_rate
@@ -95,6 +118,9 @@ class Trainer:
         self._profiled = False
         self.checkpoint_every_steps = checkpoint_every_steps
         self._global_step = 0
+        # the newest step this run saved: every rank takes the same save
+        # decisions (a save is a collective) from it, not from the disk
+        self._saved_step = None
         # the epoch the CLI loop starts at; resume() takes it from the
         # checkpoint's sidecar
         self.start_epoch = 0
@@ -105,8 +131,11 @@ class Trainer:
         EfficientNet-B0 state_dict (``train.loop.create_train_state``)."""
         self.state = train_loop.create_train_state(
             self.model_cfg, seed=seed, device=self.device, learning_rate=self.learning_rate,
-            param_dtype=self.param_dtype, pretrained_b0=pretrained_b0)
+            param_dtype=self.param_dtype, pretrained_b0=pretrained_b0, **self._layout())
         return self.state
+
+    def _layout(self) -> dict:
+        return {"zero1": self.zero1, "n_model": self.n_model}
 
     def load_torch_checkpoint(self, path: str):
         """Weights from a reference-format ``.pt``, a fresh Adam, step 0."""
@@ -114,7 +143,8 @@ class Trainer:
 
         self.state = train_loop.train_state_from_torch(
             load_state_dict(path), self.model_cfg, device=self.device,
-            learning_rate=self.learning_rate, param_dtype=self.param_dtype, spec=path)
+            learning_rate=self.learning_rate, param_dtype=self.param_dtype, spec=path,
+            **self._layout())
         return self.state
 
     def resume(self) -> bool:
@@ -128,7 +158,7 @@ class Trainer:
             self.init_state()
         step = self.ckpt.latest_step()
         self.ckpt.restore(self.state, step)
-        self._global_step = self.state.step
+        self._global_step = self._saved_step = self.state.step
         meta = self.ckpt.meta(step)
         self.start_epoch = (int(meta["epoch"]) + bool(meta.get("completed"))
                             if "epoch" in meta else 0)
@@ -169,7 +199,7 @@ class Trainer:
             running = loss if running is None else running + loss
             n += 1
             self._global_step += 1
-            pairs += int(batch["gt"].shape[0])
+            pairs += int(batch["gt"].shape[0]) * mesh.world_size()
             if (i + 1) % self.log_every == 0:
                 avg = running.item() / n
                 print(f"[{epoch}, {i + 1:5d}] loss: {avg:.3f} "
@@ -179,6 +209,7 @@ class Trainer:
                     and self._global_step % self.checkpoint_every_steps == 0):
                 self.ckpt.save(self._global_step, self.state,
                                meta={"epoch": epoch, "completed": False})
+                self._saved_step = self._global_step
             timer.stop()
         if tracer is not None:
             # the epoch ended inside the capture window
@@ -188,9 +219,10 @@ class Trainer:
             torch.cuda.synchronize(self.device)
         elapsed = time.time() - t0
         if self.ckpt:
-            if self.ckpt.latest_step() != self._global_step:
+            if self._saved_step != self._global_step:
                 self.ckpt.save(self._global_step, self.state,
                                meta={"epoch": epoch, "completed": True})
+                self._saved_step = self._global_step
             else:
                 # a mid-epoch save landed on this very step: mark it as the
                 # epoch's end so that resume starts at the next epoch
@@ -226,6 +258,10 @@ class Trainer:
         device (``make_eval_readout_step``) and fetch those, batch N's
         while batch N+1 runs; else fetch the full heatmaps (the same metrics
         except where two logits round to one softmax value).
+
+        Under a process group each rank runs its slice of every batch and
+        the results of all ranks are gathered (``parallel.mesh.fetch_global``)
+        before they are counted, so every rank returns the global summary.
         """
         assert self.state is not None
         model = self.state.model
@@ -265,8 +301,8 @@ class Trainer:
                 (host, done), mpp = pending
                 if done is not None:
                     done.synchronize()
-                r = {k: v.numpy() for k, v in host.items()}
-                heading = r.pop("heading", None)
+                r = mesh.fetch_global({**{k: v.numpy() for k, v in host.items()}, "mpp": mpp})
+                heading, mpp = r.pop("heading", None), r.pop("mpp")
                 acc.update_from_readout(r, mpp, orientation_from_north=heading)
                 pairs += len(mpp)
 
@@ -286,13 +322,16 @@ class Trainer:
                 batch = device_batch_fn(raw)
                 b = int(batch["gt"].shape[0])
                 out = step(model, batch["grd"], batch["sat"])
-                acc.update(out.heatmap.cpu().numpy(), batch["gt"].cpu().numpy()[..., None],
-                           out.ori.cpu().numpy(), batch["orientation"].cpu().numpy(),
-                           mpp_of(raw, b),
-                           orientation_from_north=(
-                               np.asarray(raw["orientation_from_north"], np.float32)
-                               if with_heading else None))
-                pairs += b
+                # the full-heatmap (parity) path gathers whole heatmaps from
+                # every rank: heavy, but exact, as JAX's on a pod
+                g = mesh.fetch_global({
+                    "heatmap": out.heatmap, "gt": batch["gt"], "ori": out.ori,
+                    "orientation": batch["orientation"], "mpp": mpp_of(raw, b),
+                    "heading": (np.asarray(raw["orientation_from_north"], np.float32)
+                                if with_heading else np.zeros(b, np.float32))})
+                acc.update(g["heatmap"], g["gt"][..., None], g["ori"], g["orientation"],
+                           g["mpp"], orientation_from_north=g["heading"] if with_heading else None)
+                pairs += len(g["mpp"])
         summary = acc.summary()
         summary["pairs_per_sec"] = pairs / max(time.time() - t0, 1e-9)
         return summary

@@ -9,7 +9,9 @@ Training runs 6 epochs with an eval of both test splits after each;
 ``--training False`` also reports the lateral/longitudinal decomposition
 and the <1/3/5 m and degree recalls (reference ``train_KITTI.py:355-360``).
 ``--device_augment`` runs the aerial alignment chain of training on the
-device.  Runs on ``cuda``; ``CCVPE_PLATFORM=cpu`` runs on the CPU.
+device.  Runs on ``cuda``; ``CCVPE_PLATFORM=cpu`` runs on the CPU.  Under
+``torchrun --nproc_per_node N -m ...`` it runs one process per card,
+data-parallel, ``-b`` the global batch (``train.cli.run_main``).
 """
 
 import argparse
@@ -40,10 +42,14 @@ def parse_args(argv=None):
                          cache_help="build/use preprocessed uint8 array caches (ground "
                                     "at model size, satmaps raw) for decode-free input "
                                     "streaming")
-    return cli.parse(p, argv)
+    return p.parse_args(argv)
 
 
 def main(argv=None):
+    return cli.run_main(_main, argv)
+
+
+def _main(argv=None):
     args = parse_args(argv)
     training = args.training == "True"
     label = f"KITTI_rotation_range{args.rotation_range}"

@@ -9,7 +9,9 @@ checkpoint directory, results files and printed eval lines):
 Training runs 50 epochs with a validation pass after each;
 ``--training False`` evaluates the three test traversals one by one
 (per-frame pose, reference ``:74-83, 209-397``).  Runs on ``cuda``;
-``CCVPE_PLATFORM=cpu`` runs on the CPU.
+``CCVPE_PLATFORM=cpu`` runs on the CPU.  Under
+``torchrun --nproc_per_node N -m ...`` it runs one process per card,
+data-parallel, ``-b`` the global batch (``train.cli.run_main``).
 """
 
 import argparse
@@ -29,10 +31,14 @@ def parse_args(argv=None):
     cli.add_common_flags(p, test_model_path="models/OxfordRobotCar/model.pt", epochs=50,
                          cache_help="build/use a preprocessed uint8 cache of the ground "
                                     "frames (the aerial side is already one in-memory map)")
-    return cli.parse(p, argv)
+    return p.parse_args(argv)
 
 
 def main(argv=None):
+    return cli.run_main(_main, argv)
+
+
+def _main(argv=None):
     args = parse_args(argv)
     training = args.training == "True"
     label = "OxfordRobotCar"

@@ -12,7 +12,9 @@ False``): the orientation-prior model (matching bins restricted to
 ``range(-n, n+1)`` for ``--ori_noise`` = 18n < 180), the frozen test
 orientations of the repository's ``fixtures/`` at ``--ori_noise 180``,
 and limited-FoV panorama cropping (``-f``).  Runs on ``cuda``;
-``CCVPE_PLATFORM=cpu`` runs on the CPU.
+``CCVPE_PLATFORM=cpu`` runs on the CPU.  Under
+``torchrun --nproc_per_node N -m ...`` it runs one process per card,
+data-parallel, ``-b`` the global batch (``train.cli.run_main``).
 """
 
 import argparse
@@ -43,10 +45,14 @@ def parse_args(argv=None):
     cli.add_common_flags(p, test_model_path="models/VIGOR/samearea/model.pt", epochs=15,
                          cache_help="build/use preprocessed uint8 array caches "
                                     "(decode-free input streaming)")
-    return cli.parse(p, argv)
+    return p.parse_args(argv)
 
 
 def main(argv=None):
+    return cli.run_main(_main, argv)
+
+
+def _main(argv=None):
     args = parse_args(argv)
     training = args.training == "True"
     pos_only = args.pos_only == "True"

@@ -112,6 +112,26 @@ Phases, each printing one JSON line:
    ``serve.main`` on the same weights) answering 48 requests, each equal to
    the served model's own ``predict_batch``; requests/s.
 
+9. parallel (after ``cli``): multi-device training and serving on the one
+   card.  (a) Two spawned ranks join a gloo group through
+   ``parallel.mesh.maybe_init_distributed`` and share the H100 (NCCL
+   refuses two ranks on one GPU): VIGOR at full width, global batch 8 (4 a
+   rank), f32, TF32 off, drop-connect off; two steps each of DDP, ZeRO-1
+   and ``grad_accum=2``, each held on both ranks to the
+   one-process batch-8 steps (the first step's loss parts 1e-5, every
+   gradient after DDP's reduction 1e-3·‖g‖ + 1e-6·grad_norm, BN statistics
+   1e-5; the second step's loss parts 1e-4, ``LATER_STEP_RTOL``; ZeRO-1's
+   parameters to DDP's within 1e-6 relative), K1 launched per forward as
+   the one-process forward launches it; step ms, peak GiB and bytes
+   all-reduced per rank, labelled as two ranks sharing one card; (b)
+   ``n_model=2`` (FSDP2 over gloo) on the same ranks, held the same way;
+   (c) ``Trainer``'s two steps under a one-rank NCCL group against the same
+   steps without a group, bit for bit (cuDNN deterministic); (d)
+   ``CVMModel(mesh=[cuda:0, cuda:0])`` at the serve keys against the
+   one-device model (the same pixel, heatmap 1e-7, heading 0.1°), a batch
+   of one on the first replica alone, and ``serve --mesh data`` answering
+   as ``predict_batch``.
+
 Then the ``kernels`` summary line, the raw ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script then exits
 non-zero and prints no result line.  It needs one CUDA device and ``nvcc``.
@@ -1925,6 +1945,429 @@ def phase_cli(dev: dict, roots: dict) -> dict:
     return info
 
 
+PARALLEL_RANKS = 2
+PARALLEL_STEPS = 2
+# ZeRO-1 against the replicated run (the same products, cuDNN deterministic;
+# Adam on slices): each parameter within 1e-6 of its norm
+ZERO1_PARAM_RTOL = 1e-6
+# a second step starts from weights that two correct runs leave apart: where
+# a gradient is near Adam's eps, its reduction order (two ranks' halves
+# against one batch) can flip the update's sign, a whole lr step; the
+# second step's loss parts are held at 1e-4 (the first step at TRAIN_TOL)
+LATER_STEP_RTOL = 1e-4
+# the cases each rank runs: (name, state options, grad_accum, reference)
+PARALLEL_CASES = (("ddp", {}, 1, 1), ("zero1", {"zero1": True}, 1, 1),
+                  ("accum", {}, 2, 2), ("n_model", {"n_model": 2}, 1, 1))
+GLOO_LABEL = "two ranks sharing one H100 over gloo (not a multi-GPU speed)"
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _snapshot(state) -> dict:
+    """The first step's gradients (whole, on the host) and BN statistics."""
+    from ccvpe_torch.parallel.distribute import full_tensor
+
+    grads = {k: full_tensor(p.grad).detach().float().cpu()
+             for k, p in state.model.named_parameters() if p.grad is not None}
+    bn = {k: v.detach().cpu().clone() for k, v in state.model.named_buffers()
+          if k.endswith(("running_mean", "running_var"))}
+    return {"grads": grads, "bn": bn}
+
+
+def _params(state) -> dict:
+    from ccvpe_torch.parallel.distribute import full_tensor
+
+    return {k: full_tensor(p).detach().float().cpu() for k, p in state.model.named_parameters()}
+
+
+def _held(tag, parts, snap, ref, tol=TRAIN_TOL) -> dict:
+    """Loss parts of every step, the first step's gradients and BN
+    statistics against the one-process reference (``_parallel_refs``)."""
+    errs = {}
+    for i, (got, want) in enumerate(zip(parts, ref["parts"], strict=True)):
+        rtol = tol["loss_rtol"] if i == 0 else LATER_STEP_RTOL
+        for k, v in want.items():
+            a = got[k]
+            if not (math.isfinite(a) and abs(a - v) <= rtol * abs(v)):
+                raise AssertionError(f"{tag}: step {i + 1} {k} {a} vs {v}")
+            errs[f"{k}_{i + 1}"] = abs(a - v) / abs(v)
+    grad_norm = ref["parts"][0]["grad_norm"]
+    if set(snap["grads"]) != set(ref["grads"]):
+        raise AssertionError(f"{tag}: gradients of {sorted(set(snap['grads']) ^ set(ref['grads']))[:4]}")
+    worst = 0.0
+    for k, want in ref["grads"].items():
+        d = (snap["grads"][k] - want).norm().item()
+        lim = tol["grad_rel"] * want.norm().item() + tol["grad_abs"] * grad_norm
+        if not d <= lim:
+            raise AssertionError(f"{tag}: gradient of {k} differs by {d} > {lim}")
+        worst = max(worst, d / lim)
+    bn_err = 0.0
+    for k, want in ref["bn"].items():
+        torch.testing.assert_close(snap["bn"][k], want, atol=tol["bn"], rtol=tol["bn"],
+                                   msg=lambda m, k=k: f"{tag}: {k}: {m}")
+        bn_err = max(bn_err, (snap["bn"][k] - want).abs().max().item())
+    return {"loss_parts_rel_err": errs, "gradient_tensors": len(ref["grads"]),
+            "worst_gradient_err_over_limit": worst, "bn_max_abs_err": bn_err}
+
+
+def _parallel_refs(cfg, d: str, device, span: float) -> dict:
+    """One process, no process group: the start (seeded weights, calibrated
+    BN statistics) and the global batch written for the ranks, and the
+    reference steps at the global batch: two plain steps, two of
+    ``grad_accum=2``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    state = _calibrated_state(cfg, seed=0, device=device)
+    sd = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+    batch = _normalized(_train_batch(cfg, BATCH, seed=2, device=device, span=span))
+    torch.save({"model": sd, "batch": {k: v.cpu() for k, v in batch.items()}},
+               f"{d}/inputs.pt")
+    del state
+    info = {}
+    for accum in (1, 2):
+        st = TLOOP.train_state_from_torch(sd, cfg, device=device)
+        step = TLOOP.make_train_step(cfg, grad_accum=accum)
+        steps = PARALLEL_STEPS
+        parts, snap, ms = [], None, []
+        MC.reset_launch_counts()
+        for i in range(steps):
+            _sync(device)
+            t0 = time.perf_counter()
+            p = step(st, batch)
+            _sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            parts.append({k: v.item() for k, v in p.items()})
+            if i == 0:
+                snap = _snapshot(st)
+        per_forward = {k: n // (steps * accum) for k, n in MC.launch_counts().items()}
+        if cfg.name == "VIGOR" and per_forward != {"matching_epilogue": 6, "matching_scores": 0}:
+            raise AssertionError(f"the one-process VIGOR step launched {per_forward} a forward")
+        torch.save({"parts": parts, **snap, "params": _params(st),
+                    "launches_per_forward": per_forward}, f"{d}/ref_{accum}.pt")
+        info[f"grad_accum_{accum}_step_ms"] = ms
+        del st
+    return info
+
+
+def _parallel_rank(rank: int, world: int, port: int, d: str, cfg_name: str, device: str) -> None:
+    """One rank of the ``parallel`` phase, a process of its own: joins the
+    gloo group through ``maybe_init_distributed`` (the launch environment
+    set here, as ``torchrun`` sets it) and runs every case of
+    ``PARALLEL_CASES`` on its half of the global batch, each held to the
+    one-process reference; writes ``rank{r}.json``."""
+    import faulthandler
+
+    from ccvpe_torch.parallel import mesh
+
+    faulthandler.enable()   # a crash in a rank prints where it was
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port), LOCAL_RANK="0")
+    if not mesh.maybe_init_distributed(backend="gloo"):
+        raise AssertionError("maybe_init_distributed did not join the group")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # deterministic convolutions: ZeRO-1's run repeats DDP's products exactly
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    cuda = torch.device(device).type == "cuda"
+    cfg = cvm.PRESETS[cfg_name]
+    inp = torch.load(f"{d}/inputs.pt", weights_only=True)
+    sd = inp["model"]
+    local = {k: v.to(device) for k, v in mesh.shard_batch(inp["batch"]).items()}
+    refs = {a: torch.load(f"{d}/ref_{a}.pt", weights_only=True) for a in (1, 2)}
+    out = {"rank": rank, "world": mesh.world_size(), "backend": torch.distributed.get_backend(),
+           "label": GLOO_LABEL, "cases": {}}
+    ddp_params = None
+    for name, kw, accum, ref in PARALLEL_CASES:
+        state = TLOOP.train_state_from_torch(sd, cfg, device=device, **kw)
+        step = TLOOP.make_train_step(cfg, grad_accum=accum)
+        steps = len(refs[ref]["parts"])
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        MC.reset_launch_counts()
+        mesh.reset_all_reduced_bytes()
+        parts, ms, snap = [], [], None
+        for i in range(steps):
+            _sync(device)
+            t0 = time.perf_counter()
+            p = step(state, local)
+            _sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            parts.append({k: v.item() for k, v in p.items()})
+            if i == 0:
+                snap = _snapshot(state)
+        # each forward launches what the one-process forward launches
+        launches = MC.launch_counts()
+        want = {k: n * accum * steps for k, n in refs[ref]["launches_per_forward"].items()}
+        if launches != want:
+            raise AssertionError(f"rank {rank} {name}: launches {launches}, want {want}")
+        case = {"held": _held(f"rank {rank} {name}", parts, snap, refs[ref]),
+                "step_ms": ms, "launches": launches,
+                "launches_by_layout": {f"{k} {lay}": n for (k, lay), n
+                                       in MC.launch_counts("layout").items() if n},
+                "bn_and_loss_all_reduced_bytes_per_step": mesh.all_reduced_bytes() // steps,
+                "gradient_all_reduced_bytes_per_step": sum(
+                    p.numel() * 4 for k, p in state.model.named_parameters() if "._fc." not in k)}
+        if cuda:
+            case["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        params = _params(state)
+        if name == "ddp":
+            ddp_params = params
+        if name == "zero1":
+            worst = 0.0
+            for k, want_p in ddp_params.items():
+                err = (params[k] - want_p).norm().item()
+                lim = ZERO1_PARAM_RTOL * want_p.norm().item()
+                if not err <= lim:
+                    raise AssertionError(f"rank {rank} zero1: {k} off the DDP run's by {err}")
+                worst = max(worst, err / max(lim, 1e-30))
+            case["params_vs_ddp_worst_over_limit"] = worst
+            case["sharded_tensors"] = sum(ax is not None for ax in state.optimizer.axes)
+        out["cases"][name] = case
+        print(f"parallel rank {rank}: {name} held", file=sys.stderr, flush=True)
+        del state, params
+    with open(f"{d}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def _nccl_one_rank(port: int, d: str, cfg_name: str) -> None:
+    """(c) ``Trainer``'s steps without a process group, then under a
+    one-rank NCCL group joined through ``maybe_init_distributed``; cuDNN
+    deterministic, so the two runs can be held bit for bit."""
+    from ccvpe_torch.parallel import mesh
+    from ccvpe_torch.train.harness import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    cfg = cvm.PRESETS[cfg_name]
+    inp = torch.load(f"{d}/inputs.pt", weights_only=True)
+    batch = {k: v.to("cuda") for k, v in inp["batch"].items()}
+
+    def run():
+        tr = Trainer(cfg, batch_size=BATCH, device="cuda")
+        tr.state = TLOOP.train_state_from_torch(inp["model"], cfg, device="cuda")
+        parts = [{k: v.item() for k, v in tr._train_step(tr.state, batch, None).items()}
+                 for _ in range(PARALLEL_STEPS)]
+        return parts, _params(tr.state)
+
+    alone = run()
+    os.environ.update(RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      LOCAL_RANK="0")
+    if not mesh.maybe_init_distributed():
+        raise AssertionError("maybe_init_distributed did not join the one-rank group")
+    out = {"backend": torch.distributed.get_backend(), "world": mesh.world_size()}
+    grouped = run()
+    torch.distributed.destroy_process_group()
+    diffs = {k: (alone[1][k] - grouped[1][k]).abs().max().item() for k in alone[1]}
+    worst = max(diffs, key=diffs.get)
+    out.update(parts_alone=alone[0], parts_grouped=grouped[0],
+               bitwise=alone[0] == grouped[0] and diffs[worst] == 0.0,
+               largest_param_diff=diffs[worst], largest_param_diff_at=worst)
+    with open(f"{d}/nccl.json", "w") as f:
+        json.dump(out, f)
+
+
+def _spawn(target, args_list, timeout_s: float) -> None:
+    """Start one process per argument tuple (spawned), wait for all, and
+    stop any left; raise unless every one exited 0."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=a) for a in args_list]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout_s
+    try:
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1.0))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * len(procs):
+        raise AssertionError(f"{target.__name__} processes exited {codes}")
+
+
+def _mesh_serving(model: api.CVMModel, tmp: str) -> dict:
+    """(d) ``CVMModel(mesh=[dev, dev])`` (two replicas on the card) against
+    the one-device model at the serve keys, a batch of one through the
+    first replica alone, and ``python -m ccvpe_torch.serve --mesh data``
+    (through ``serve.main``) answering requests as ``predict_batch``."""
+    import concurrent.futures
+    import multiprocessing
+    import threading
+
+    from ccvpe_torch import serve
+    from ccvpe_torch.api import _prepare
+
+    cfg, dev = model.cfg, model.device
+    meshed = api.CVMModel(cfg, model.net, dev, mesh=[dev, dev])
+    if len(meshed.replicas) != 2 or meshed.replicas[1].net is model.net:
+        raise AssertionError("the mesh model did not make two replicas")
+    grd, sat = _images(cfg, BATCH, 71)
+    MC.reset_launch_counts()
+    counts, worst = {}, {"heatmap": 0.0, "heading": 0.0}
+    for noise, fov in SERVE_KEYS:
+        kw = dict(ori_noise=noise, fov=fov, return_heatmap=True)
+        before = MC.launch_counts()
+        got = meshed.predict_batch(grd, sat, **kw)
+        counts[json.dumps([noise, fov])] = {k: n - before[k] for k, n in MC.launch_counts().items()}
+        want = model.predict_batch(grd, sat, **kw)
+        for g, w in zip(got, want, strict=True):
+            if (g.row, g.col) != (w.row, w.col):
+                raise AssertionError(f"mesh predict_batch {noise, fov}: {g.row, g.col} vs "
+                                     f"{w.row, w.col}")
+            worst["heatmap"] = max(worst["heatmap"], float(np.abs(g.heatmap - w.heatmap).max()))
+            worst["heading"] = max(worst["heading"], abs(
+                (g.orientation_deg - w.orientation_deg + 180) % 360 - 180))
+    if worst["heatmap"] > MODEL_TOL["heatmap"] or worst["heading"] > HEADING_TOL_DEG:
+        raise AssertionError(f"mesh predict_batch: {worst}")
+    second = meshed.replicas[1]
+    second.forward_readout = lambda *a, **k: (_ for _ in ()).throw(
+        AssertionError("a batch of one reached the second replica"))
+    try:
+        one = meshed.predict(grd[0], sat[0])
+    finally:
+        del second.forward_readout
+    ref = model.predict(grd[0], sat[0])
+    if (one.row, one.col, one.probability) != (ref.row, ref.col, ref.probability):
+        raise AssertionError(f"mesh batch of one {one} vs {ref}")
+
+    pt = f"{tmp}/vigor_mesh.pt"
+    model.save_torch(pt)
+    rng = np.random.default_rng(72)
+    pairs = [(rng.integers(0, 256, (*cfg.grd_hw, 3), dtype=np.uint8),
+              rng.integers(0, 256, (*cfg.sat_hw, 3), dtype=np.uint8)) for _ in range(BATCH)]
+    bodies = [json.dumps({"grd": _png_b64(g), "sat": _png_b64(s)}).encode() for g, s in pairs]
+    started, ready, failed = {}, threading.Event(), []
+    build = serve.build_server
+
+    def build_local(service, host, port, **kw):
+        srv = build(service, "127.0.0.1", 0, **kw)
+        started.update(service=service, srv=srv)
+        ready.set()
+        return srv
+
+    def run():
+        try:
+            serve.main(["--checkpoint", pt, "--preset", cfg.name, "--batch", str(BATCH),
+                        "--max_wait_ms", "20", "--mesh", "data"])
+        except BaseException as e:  # noqa: BLE001 — reported to the phase
+            failed.append(e)
+            ready.set()
+
+    serve.build_server = build_local
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    clients = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        if not ready.wait(timeout=300) or failed:
+            raise AssertionError(f"serve --mesh data did not start: {failed}")
+        service, srv = started["service"], started["srv"]
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        MC.reset_launch_counts()
+        answers, wall = clients.submit(_client_load, url, bodies, BATCH).result()
+        torch.cuda.synchronize()
+        serve_launches = MC.launch_counts()
+        want = model.predict_batch(np.stack([_prepare(g, cfg.grd_hw) for g, _ in pairs]),
+                                   np.stack([_prepare(s, cfg.sat_hw) for _, s in pairs]))
+        for (code, got, _), w in zip(answers, want):
+            if code != 200 or (got["row"], got["col"]) != (w.row, w.col) or abs(
+                    got["probability"] - w.probability) > SERVE_PROB_TOL:
+                raise AssertionError(f"serve --mesh data: {code} {got} vs {w}")
+        replicas = len(service.model.replicas)
+    finally:
+        clients.shutdown()
+        serve.build_server = build
+        if "srv" in started:
+            started["srv"].shutdown()
+            started["srv"].server_close()
+        thread.join(timeout=60)
+        if thread.is_alive():
+            raise AssertionError("serve --mesh data did not stop")
+    del meshed
+    return {"mesh_predict_batch": {"replicas": 2, "heatmap_max_abs_err": worst["heatmap"],
+                                   "heading_err_deg": worst["heading"],
+                                   "launches_by_key": counts},
+            "batch_of_one": "first replica",
+            "serve_mesh_data": {"replicas": replicas, "requests": len(bodies),
+                                "seconds": wall, "launches": serve_launches}}
+
+
+def phase_parallel(dev: dict, model: api.CVMModel, cfg=None, device: str = "cuda",
+                   rank_target=None, span: float = 200.0) -> dict:
+    """Multi-device training and serving on the one card: (a) two spawned
+    ranks over gloo, DDP / ZeRO-1 / grad_accum=2 at the global batch, (b)
+    ``n_model=2`` (FSDP2) on the same ranks, each held to the one-process
+    step; (c) one rank over NCCL against no process group, bit for bit;
+    (d) serving from a two-replica mesh."""
+    cfg = cfg or cvm.VIGOR
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ccvpe_smoke_parallel_") as d:
+        ref_info = _parallel_refs(cfg, d, device, span)
+        gc.collect()
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+        port = _free_port()
+        t1 = time.perf_counter()
+        _spawn(rank_target or _parallel_rank,
+               [(r, PARALLEL_RANKS, port, d, cfg.name, device) for r in range(PARALLEL_RANKS)],
+               timeout_s=400)
+        ranks_s = time.perf_counter() - t1
+        ranks = []
+        for r in range(PARALLEL_RANKS):
+            with open(f"{d}/rank{r}.json") as f:
+                ranks.append(json.load(f))
+        if [(x["rank"], x["world"], x["backend"]) for x in ranks] != [
+                (r, PARALLEL_RANKS, "gloo") for r in range(PARALLEL_RANKS)]:
+            raise AssertionError(f"ranks {[(x['rank'], x['world']) for x in ranks]}")
+        nccl = None
+        if torch.device(device).type == "cuda":
+            _spawn(_nccl_one_rank, [(_free_port(), d, cfg.name)], timeout_s=300)
+            with open(f"{d}/nccl.json") as f:
+                nccl = json.load(f)
+            if (nccl["backend"], nccl["world"]) != ("nccl", 1):
+                raise AssertionError(f"one-rank group: {nccl}")
+        serving = _mesh_serving(model, d)
+    info = {"phase": "parallel", "card": dev["nvidia_smi"], "preset": cfg.name,
+            "global_batch": BATCH, "ranks": PARALLEL_RANKS, "label": GLOO_LABEL,
+            "reference": ref_info, "ranks_seconds": ranks_s,
+            "by_rank": [x["cases"] for x in ranks], "nccl_one_rank": nccl,
+            "serving": serving, "seconds": time.perf_counter() - t0,
+            "n_model": "run on one card: FSDP2 over gloo on CUDA tensors"}
+    info["k1_launches"] = sum(c["launches"]["matching_epilogue"]
+                              for x in ranks for c in x["cases"].values())
+    keep = ("step_ms", "peak_gib", "launches_by_layout", "gradient_all_reduced_bytes_per_step",
+            "bn_and_loss_all_reduced_bytes_per_step", "params_vs_ddp_worst_over_limit",
+            "sharded_tensors")
+    emit({**{k: v for k, v in info.items() if k != "by_rank"},
+          "by_rank": [{name: {**{k: c[k] for k in keep if k in c},
+                              "worst_gradient_err_over_limit":
+                                  c["held"]["worst_gradient_err_over_limit"],
+                              "bn_max_abs_err": c["held"]["bn_max_abs_err"]}
+                       for name, c in x.items()} for x in info["by_rank"]]})
+    return info
+
+
 def phase_timing(dev: dict, model: api.CVMModel, out: Path | None) -> dict:
     grd, sat = _images(model.cfg, BATCH, seed=6)
     res = {"phase": "timing", "card": dev["nvidia_smi"], "batch": BATCH, "dtype": "float32"}
@@ -2588,7 +3031,7 @@ def phase_quant(dev: dict, model: api.CVMModel, out: Path | None) -> dict:
 
 def kernels_line(kern: dict, model: dict, presets: dict, train: dict, data: dict, cli: dict,
                  dev: dict, options: dict | None = None, serve: dict | None = None,
-                 quant: dict | None = None) -> list[dict]:
+                 quant: dict | None = None, parallel: dict | None = None) -> list[dict]:
     """The rows of the ``kernels`` line: each kernel's times at its shapes
     (phase ``kernels``, ``model_presets``) and its launches on each main
     path, each counted from 0 just before that path ran."""
@@ -2693,6 +3136,21 @@ def kernels_line(kern: dict, model: dict, presets: dict, train: dict, data: dict
             summary[2]["launches_by_path"][path] = q["matching_scores_fov"]
         for row in summary[:3]:
             row["launches"] = sum(row["launches_by_path"].values())
+    # the parallel phase: both ranks' train steps (K1), the mesh model at
+    # the serve keys and ``serve --mesh data``
+    if parallel is not None:
+        srv = parallel["serving"]
+        by_key = srv["mesh_predict_batch"]["launches_by_key"]
+        keys = [json.dumps(list(k)) for k in SERVE_KEYS]
+        summary[0]["launches_by_path"]["parallel_train"] = parallel["k1_launches"]
+        summary[0]["launches_by_path"]["parallel_serve"] = (
+            sum(by_key[k]["matching_epilogue"] for k in keys)
+            + srv["serve_mesh_data"]["launches"]["matching_epilogue"])
+        summary[1]["launches_by_path"]["parallel_serve"] = (
+            by_key[keys[1]]["matching_scores"] - by_key[keys[0]]["matching_scores"])
+        summary[2]["launches_by_path"]["parallel_serve"] = by_key[keys[2]]["matching_scores"]
+        for row in summary[:3]:
+            row["launches"] = sum(row["launches_by_path"].values())
     idle = [(row["name"], path) for row in summary
             for path, n in row["launches_by_path"].items() if not n]
     if idle:
@@ -2729,16 +3187,18 @@ def main(argv=None) -> int:
         roots = write_roots(tmp)
         data = phase_data(dev, roots)
         cli = phase_cli(dev, roots)
+    parallel = phase_parallel(dev, net)
     timing = phase_timing(dev, net, args.out)
     serve = phase_serve(dev, net)
     quant = phase_quant(dev, net, args.out)
-    summary = kernels_line(kern, model, presets, train, data, cli, dev, options, serve, quant)
+    summary = kernels_line(kern, model, presets, train, data, cli, dev, options, serve, quant,
+                           parallel)
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(json.dumps(
             {"device": dev, "kernels": {k: v for k, v in kern.items() if k != "max_err"},
              "model": model, "model_presets": presets, "train": train,
              "train_options": options, "data": data, "cli": cli, "timing": timing,
-             "serve": serve, "quant": quant,
+             "serve": serve, "quant": quant, "parallel": parallel,
              "seconds": time.perf_counter() - t0}, indent=1))
     emit({"kernels": summary})
     print(dev["nvidia_smi"], flush=True)

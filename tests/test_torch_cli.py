@@ -20,6 +20,9 @@ import torch
 from ccvpe_torch import train_KITTI as PK
 from ccvpe_torch import train_OxfordRobotCar as PO
 from ccvpe_torch import train_VIGOR as PV
+from ccvpe_torch.models import cvm as TC
+from ccvpe_torch.parallel import mesh
+from ccvpe_torch.train import cli as TCLI
 from tests.torch_data_roots import kitti_root, oxford_root, vigor_root  # noqa: F401
 from tests.torch_data_roots import write_nano_pt
 
@@ -122,12 +125,18 @@ def test_oxford_eval_matches_jax(oxford_root, model_pt, on_cpu, tmp_path):
         assert "median_lateral_m" in got[t]
 
 
-@pytest.mark.parametrize("cli,flags,item", [
-    (PV, ["--zero1"], "item 7"), (PV, ["--n_model", "2"], "item 7"),
-    (PO, ["--zero1"], "item 7")])
-def test_unported_flags_exit_naming_their_roadmap_item(cli, flags, item, on_cpu):
-    with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1 {item}"):
-        cli.main(["--model_preset", "NANO", *flags])
+@pytest.mark.parametrize("cli,flags,want", [
+    (PV, ["--zero1"], dict(zero1=True, n_model=1)),
+    (PK, ["--n_model", "2"], dict(zero1=False, n_model=2)),
+    (PO, ["--zero1", "--n_model", "4"], dict(zero1=True, n_model=4))])
+def test_parallel_flags_reach_the_trainer(cli, flags, want, monkeypatch):
+    """``--zero1`` and ``--n_model`` are the Trainer's; its mesh checks are
+    the JAX trainer's (``n_model`` must divide the world size)."""
+    args = cli.parse_args(["--model_preset", "NANO", *flags])
+    assert (args.zero1, args.n_model) == (want["zero1"], want["n_model"])
+    monkeypatch.setattr(mesh, "world_size", lambda: 4)
+    trainer = TCLI.make_trainer(TC.NANO, args, label="t", checkpoint_dir="", device="cpu")
+    assert (trainer.zero1, trainer.n_model) == (want["zero1"], want["n_model"])
 
 
 @pytest.mark.parametrize("cli", [PV, PK, PO])

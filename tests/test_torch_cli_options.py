@@ -53,7 +53,7 @@ def test_training_option_flags_are_taken(cli, flags, want):
     assert trainer.compute_dtype == TLOOP.DTYPES[want["compute"]]
     assert trainer.param_dtype == TLOOP.DTYPES[want["params"]]
     assert trainer.remat == want["remat"]
-    assert set(TCLI.NOT_PORTED) == {"zero1", "n_model"}
+    assert (trainer.zero1, trainer.n_model) == (False, 1)
 
 
 def _nano_backbone_file(path, seed=5) -> str:

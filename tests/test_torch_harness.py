@@ -187,8 +187,19 @@ def test_readout_path_agrees_with_the_heatmap_path(vigor_root, tmp_path, with_he
     assert ((top2[:, 0] - top2[:, 1]) > 1e-6 * top2[:, 0].abs()).all()
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(n_model=2), "item 7"), (dict(zero1=True), "item 7")])
-def test_options_not_ported_raise(kw, item):
-    with pytest.raises(ValueError, match=f"ROADMAP.md Queue 1 {item}"):
+@pytest.mark.parametrize("kw,match", [
+    (dict(n_model=2), r"n_model=2 must be a positive divisor of the device count \(1\)"),
+    (dict(n_model=0), r"n_model=0 must be a positive divisor")])
+def test_n_model_must_divide_the_world(kw, match):
+    """Without a process group the world is one device: ``n_model`` 1 only
+    (the message of the JAX trainer's mesh check)."""
+    with pytest.raises(ValueError, match=match):
         TH.Trainer(CFG, device="cpu", **kw)
+
+
+def test_zero1_alone_is_the_one_device_optimizer():
+    """Without a process group ``zero1`` shards nothing: the optimizer is
+    Adam's, as a one-device JAX mesh leaves the state whole."""
+    tr = TH.Trainer(CFG, device="cpu", zero1=True)
+    tr.init_state()
+    assert type(tr.state.optimizer) is torch.optim.Adam

@@ -103,3 +103,16 @@ def test_python_m_entry_points_load_no_jax(module):
     assert proc.returncode == 0, proc.stderr
     flag = "--configs" if module.endswith("eval") else "--matching_impl"
     assert "usage:" in proc.stdout and flag in proc.stdout
+
+
+@pytest.mark.parametrize("module", ["mesh", "zero", "distribute"])
+def test_parallel_modules_are_covered_and_load_no_jax(module):
+    """``ccvpe_torch/parallel/`` is under the source scan above, and each of
+    its modules imports alone without loading jax or the JAX package."""
+    assert ROOT / "ccvpe_torch" / "parallel" / f"{module}.py" in _sources()
+    code = (f"import ccvpe_torch.parallel.{module}, sys\n"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr

@@ -660,11 +660,34 @@ def test_abuse_soak_mixed_traffic():
         service.stop()
 
 
-@pytest.mark.parametrize("flags,item", [(["--mesh", "data"], "item 7")])
-def test_unported_flags_exit_naming_their_roadmap_item(flags, item, monkeypatch):
+@pytest.mark.parametrize("batch", [1, 2])
+def test_main_serves_a_mesh_on_the_cpu_switch(batch, monkeypatch, tmp_path):
+    """``--mesh data`` on the CPU switch: two CPU replicas of the model
+    (``api.CVMModel(mesh=)``); a /predict answer, through the micro-batcher
+    at --batch 2, is the one-device ``predict_batch``'s."""
+    net = api.load_model(None, preset="NANO", seed=4, device="cpu")
+    ckpt = str(tmp_path / "m.pt")
+    net.save_torch(ckpt)
+    rng = np.random.default_rng(6)
+    grd = rng.integers(0, 255, (*cvm.NANO.grd_hw, 3), dtype=np.uint8)
+    sat = rng.integers(0, 255, (*cvm.NANO.sat_hw, 3), dtype=np.uint8)
+    want = api.load_model(ckpt, preset="NANO", device="cpu",
+                          matching_impl="plain").predict_batch(grd[None], sat[None])[0]
     monkeypatch.setenv("CCVPE_PLATFORM", "cpu")
-    with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1 {item}"):
-        serve.main(["--preset", "NANO", *flags])
+    started = {}
+
+    def build(service, host, port, **kw):
+        srv = serve.ThreadingHTTPServer((host, 0), serve.make_handler(service, **kw))
+        started["url"] = f"http://127.0.0.1:{srv.server_address[1]}"
+        return _OneShot(srv, started, {"grd": _b64_png(grd), "sat": _b64_png(sat)})
+
+    monkeypatch.setattr(serve, "build_server", build)
+    serve.main(["--preset", "NANO", "--host", "127.0.0.1", "--checkpoint", ckpt,
+                "--matching_impl", "plain", "--mesh", "data", "--batch", str(batch)])
+    assert started["health"]["replicas"] == 2
+    got = started["predict"]
+    assert (got["row"], got["col"]) == (want.row, want.col)
+    assert got["probability"] == pytest.approx(want.probability, rel=1e-5)
 
 
 def test_main_needs_cuda_or_the_cpu_switch(monkeypatch):

@@ -107,3 +107,30 @@ def run_both(cfg_name, b, matching_impl, grad_accum=1, jax_rng=None):
     assert state.step == 1 and state.model.training
     check_step(state, parts, jnew, jparts, before)
     return state, jnew, batch
+
+
+def sharded_axes(shardings, params, name=None) -> dict:
+    """The sharded axis of each leaf of a JAX ``NamedSharding`` tree of the
+    shape of ``params`` (None where replicated; ``name``: the axis sharded
+    over that mesh axis only), named and laid out as the port's parameters:
+    each leaf's sharded axis is marked by an arange and carried through
+    ``io/from_jax``'s layout rules (``grads_from_jax``)."""
+    def mark(sh, p):
+        spec = list(sh.spec) + [None] * (p.ndim - len(sh.spec))
+        ax = next((i for i, a in enumerate(spec)
+                   if a is not None and (name is None or a == name)), None)
+        if ax is None:
+            return np.zeros(p.shape, np.float32)
+        shape = [1] * p.ndim
+        shape[ax] = p.shape[ax]
+        return np.broadcast_to(np.arange(p.shape[ax], dtype=np.float32).reshape(shape),
+                               p.shape).copy()
+
+    marked = grads_from_jax(jax.tree_util.tree_map(mark, shardings, params))
+
+    def axis(t):
+        moving = [i for i in range(t.dim()) if t.shape[i] > 1 and (t.diff(dim=i) != 0).any()]
+        assert len(moving) <= 1, moving
+        return moving[0] if moving else None
+
+    return {k: axis(t) for k, t in marked.items()}
