@@ -13,22 +13,32 @@ the pose readout run on the model's device under ``torch.inference_mode``.
 post-training-quantized form.  ``load_model(..., mesh="data")`` serves
 from one replica per visible CUDA device (``predict_batch`` splits the
 batch over them).
+
+``export_model(model, "export/")`` writes the pose forward as a
+``torch.export`` program with its weights; ``load_exported("export/")``
+serves it without the model code (this module imports the model only
+where it builds or exports one):
+
+    api.export_model(model, "export/", batch="dynamic")
+    poses = api.load_exported("export/").predict_batch(grd, sat)
 """
 
 from __future__ import annotations
 
+import json
 import os
 from dataclasses import dataclass
-from typing import Sequence
+from typing import TYPE_CHECKING, Sequence
 
 import numpy as np
 import torch
 
 from . import resolve_device
 from .data.transforms import normalize_images
-from .models import cvm
-from .ops.readout import pose_readout
 from .train.metrics import angle_from_cos_sin
+
+if TYPE_CHECKING:
+    from .models import cvm
 
 
 @dataclass
@@ -45,6 +55,27 @@ def _ori_noise_to_n(ori_noise: float) -> int | None:
     if ori_noise >= 180:
         return None
     return int(ori_noise // 18)
+
+
+def _offsets(ori_noise: float):
+    """The localization branch's bin offsets: None (all bins) or the
+    prior's ``range(-n, n + 1)``."""
+    n = _ori_noise_to_n(ori_noise)
+    return None if n is None else range(-n, n + 1)
+
+
+def _poses_from_readout(r: dict[str, np.ndarray], batch: int,
+                        return_heatmap: bool) -> list[Pose]:
+    """``Pose``s from a readout's host arrays (``ops.readout.pose_readout``)."""
+    poses = []
+    for i in range(batch):
+        ang, valid = angle_from_cos_sin(r["cos"][i], r["sin"][i])
+        poses.append(Pose(
+            row=int(r["row"][i]), col=int(r["col"][i]),
+            orientation_deg=float(ang) if valid else float("nan"),
+            probability=float(r["prob"][i]),
+            heatmap=r["heatmap"][i] if return_heatmap else None))
+    return poses
 
 
 def mesh_devices(mesh) -> list[torch.device]:
@@ -94,6 +125,8 @@ class CVMModel:
                         return_heatmap: bool = False
                         ) -> tuple[cvm.CVMOutputs, dict[str, torch.Tensor]]:
         """The forward and the on-device readout of ``predict_batch``."""
+        from .ops.readout import pose_readout
+
         circular = None
         if fov < 360:
             # limited field of view: the leading fov/360 of the panorama,
@@ -102,11 +135,10 @@ class CVMModel:
                 grd.shape[2] == self.cfg.grd_hw[1]) else grd.shape[2]
             grd = grd[:, :, :w]
             circular = False
-        n = _ori_noise_to_n(ori_noise)
-        offsets = None if n is None else range(-n, n + 1)
         with torch.inference_mode():
-            out = self.net(self._normalized(grd), self._normalized(sat), loc_offsets=offsets,
-                           circular=circular, matching_impl=self.matching_impl)
+            out = self.net(self._normalized(grd), self._normalized(sat),
+                           loc_offsets=_offsets(ori_noise), circular=circular,
+                           matching_impl=self.matching_impl)
             return out, pose_readout(out, want_heatmap=return_heatmap)
 
     def predict_batch(self, grd: np.ndarray, sat: np.ndarray, *,
@@ -126,15 +158,7 @@ class CVMModel:
         else:
             _, r = self.forward_readout(grd, sat, **kw)
             r = {k: v.cpu().numpy() for k, v in r.items()}
-        poses = []
-        for i in range(grd.shape[0]):
-            ang, valid = angle_from_cos_sin(r["cos"][i], r["sin"][i])
-            poses.append(Pose(
-                row=int(r["row"][i]), col=int(r["col"][i]),
-                orientation_deg=float(ang) if valid else float("nan"),
-                probability=float(r["prob"][i]),
-                heatmap=r["heatmap"][i] if return_heatmap else None))
-        return poses
+        return _poses_from_readout(r, grd.shape[0], return_heatmap)
 
     def quantize_int8(self, calib: Sequence[tuple] | None = None, *,
                       ori_noise: float = 180.0, select: str = "all") -> "CVMModel":
@@ -167,8 +191,7 @@ class CVMModel:
             rng = np.random.default_rng(0)
             calib = [(rng.integers(0, 256, (2, *self.cfg.grd_hw, 3), dtype=np.uint8),
                       rng.integers(0, 256, (2, *self.cfg.sat_hw, 3), dtype=np.uint8))]
-        n = _ori_noise_to_n(ori_noise)
-        offsets = None if n is None else range(-n, n + 1)
+        offsets = _offsets(ori_noise)
 
         def forward(g, s):
             return self.net(self._normalized(g), self._normalized(s), loc_offsets=offsets,
@@ -221,6 +244,123 @@ def _prepare(img: np.ndarray, hw) -> np.ndarray:
     return img
 
 
+EXPORT_MAX_BATCH = 4096   # the upper end of an exported program's symbolic batch
+
+
+class _PoseForward(torch.nn.Module):
+    """What an export holds: ImageNet-normalised NHWC images -> the pose
+    readout with the heatmap (``ops.readout.pose_readout``), the matching
+    through its plain versions."""
+
+    def __init__(self, net: torch.nn.Module, offsets):
+        super().__init__()
+        self.net = net
+        self.offsets = offsets
+
+    def forward(self, grd: torch.Tensor, sat: torch.Tensor) -> dict[str, torch.Tensor]:
+        from .ops.readout import pose_readout
+
+        out = self.net(grd, sat, loc_offsets=self.offsets, matching_impl="plain")
+        return pose_readout(out, want_heatmap=True)
+
+
+def _export_file(path: str, device: torch.device) -> str:
+    return os.path.join(path, f"forward.{device.type}.pt2")
+
+
+def export_model(model: CVMModel, path: str, *, batch: int | str = 1,
+                 ori_noise: float = 180.0, platforms: Sequence[str] | None = None) -> None:
+    """Serialize the pose forward for deployment (JAX ``export_model``).
+
+    Writes to the directory ``path`` one ``torch.export`` program per
+    device, ``forward.<device>.pt2`` (``torch.export.save``; the weights are
+    inside it), and ``meta.json`` (``preset_grd_hw``, ``preset_sat_hw``,
+    ``batch``, ``ori_noise``).  The program takes the normalised images and
+    returns the readout with the heatmap; ``load_exported`` serves it
+    without this package's model code.
+
+    ``batch``: a fixed batch size, or ``"dynamic"`` for a symbolic batch
+    dimension (1 to ``EXPORT_MAX_BATCH``; traced at batch 2, since
+    ``torch.export`` specializes sizes 0 and 1).  ``platforms``: the devices
+    to export for, e.g. ``("cpu", "cuda")`` (JAX lowers one artifact for
+    several platforms; a ``torch.export`` program holds the device of every
+    tensor it makes, so each device gets its own file); default the model's.
+
+    The export always traces the plain matching, as JAX's always lowers its
+    einsum: the kernels' ctypes launches cannot be traced.  Its numbers are
+    those of ``CVMModel(matching_impl="plain").predict_batch``.  An int8
+    model exports its int8 forward; on the card its ``torch._int_mm``
+    product pads the rows to the product's limits from the batch, so an int8
+    model exports at a fixed batch there.
+    """
+    import copy
+    import warnings
+
+    devices = ([model.device] if platforms is None
+               else [resolve_device(p) for p in platforms])
+    dynamic = batch == "dynamic"
+    b = 2 if dynamic else int(batch)
+    dims = None
+    if dynamic:
+        dim = torch.export.Dim("batch", min=1, max=EXPORT_MAX_BATCH)
+        dims = {"grd": {0: dim}, "sat": {0: dim}}
+    os.makedirs(path, exist_ok=True)
+    for device in devices:
+        net = model.net if device == model.device else copy.deepcopy(model.net).to(device)
+        example = tuple(torch.zeros((b, *hw, 3), device=device)
+                        for hw in (model.cfg.grd_hw, model.cfg.sat_hw))
+        with torch.no_grad():
+            program = torch.export.export(_PoseForward(net, _offsets(ori_noise)), example,
+                                          dynamic_shapes=dims)
+        with warnings.catch_warnings():
+            # the archive calls a channels_last weight "not complete" (not
+            # contiguous) and writes its storage whole, with its strides
+            warnings.filterwarnings("ignore", "No complete tensor found in the group")
+            torch.export.save(program, _export_file(path, device))
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump({"preset_grd_hw": list(model.cfg.grd_hw),
+                   "preset_sat_hw": list(model.cfg.sat_hw),
+                   "batch": batch, "ori_noise": ori_noise}, f)
+
+
+class ExportedModel:
+    """A deserialized export on ``device`` (default ``cuda``): pose
+    inference from the program alone, no model code."""
+
+    def __init__(self, path: str, device: str | torch.device | None = None):
+        self.device = resolve_device(device)
+        with open(os.path.join(path, "meta.json")) as f:
+            self.meta = json.load(f)
+        file = _export_file(path, self.device)
+        if not os.path.exists(file):
+            have = sorted(n for n in os.listdir(path) if n.endswith(".pt2"))
+            raise FileNotFoundError(f"{file} not found: this export holds {have}; "
+                                    f"re-export with platforms=('{self.device.type}',)")
+        self._forward = torch.export.load(file).module()
+
+    def predict_batch(self, grd: np.ndarray, sat: np.ndarray, *,
+                      return_heatmap: bool = False) -> list[Pose]:
+        want = self.meta["batch"]
+        if want != "dynamic" and grd.shape[0] != want:
+            raise ValueError(
+                f"this export is fixed to batch={want}; "
+                f"got {grd.shape[0]} images (re-export with batch="
+                f"{grd.shape[0]} or batch='dynamic', or pad the batch)")
+        g, s = (normalize_images(torch.from_numpy(np.ascontiguousarray(x)).to(self.device))
+                for x in (grd, sat))
+        with torch.inference_mode():
+            r = self._forward(g, s)
+        r = {k: v.cpu().numpy() for k, v in r.items()}
+        return _poses_from_readout(r, grd.shape[0], return_heatmap)
+
+
+def load_exported(path: str, device: str | torch.device | None = None) -> ExportedModel:
+    """Load a directory written by ``export_model`` onto ``device``
+    (default ``cuda``; raises when CUDA is absent and no device was asked
+    for)."""
+    return ExportedModel(path, device)
+
+
 def load_model(checkpoint_path: str | None = None, preset: str = "VIGOR",
                seed: int = 0, device: str | torch.device | None = None,
                matching_impl: str = "kernel", mesh=None) -> CVMModel:
@@ -236,6 +376,8 @@ def load_model(checkpoint_path: str | None = None, preset: str = "VIGOR",
     kernels on a CUDA device) or 'plain'.  ``mesh``: ``"data"`` or a list
     of devices, one replica each (``CVMModel``); it takes the place of
     ``device``."""
+    from .models import cvm
+
     device = mesh_devices(mesh)[0] if mesh is not None else resolve_device(device)
     cfg = cvm.PRESETS[preset]
     net = cvm.CVM(cfg)

@@ -1,10 +1,13 @@
-"""EfficientNet-B0 (and the reduced NANO backbone) feature extractor, the
-counterpart of ``ccvpe_tpu/nn/efficientnet.py``.
+"""EfficientNet-B0 (B1-B7, and the reduced NANO backbone) feature
+extractor, the counterpart of ``ccvpe_tpu/nn/efficientnet.py``.
 
-* The B0 block table ``r1_k3_s11_e1_i32_o16_se0.25`` ... and NANO's.
+* The B0 block table ``r1_k3_s11_e1_i32_o16_se0.25`` ... and NANO's; B1-B7
+  scale B0's widths and repeats by the reference's compound coefficients
+  (``EFFICIENTNET_PARAMS``, ``round_filters``, ``round_repeats``) and trace
+  their pads from their own construction-time image size.
 * The SE reduce width comes from the block's *declared* input filters,
   which for repeated blocks is the previous block's output filters.
-* Static SAME pads computed from the construction-time 224 trace.
+* Static SAME pads computed from the construction-time trace (224 for B0).
 * Circular horizontal padding on every conv of the ground panorama encoder
   when enabled; ``forward(x, circular=False)`` turns it off for a cropped
   (limited field of view) panorama.
@@ -25,6 +28,7 @@ output (the multiscale skips).
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -78,11 +82,62 @@ NANO_BLOCK_ARGS = (
 # classes of the ImageNet classifier head ``_fc`` (kept only for its keys)
 NUM_CLASSES = 1000
 
-# name -> (block table, stem width, head width, construction-time image size)
+# (width_coefficient, depth_coefficient, resolution) per model (the
+# reference's ``efficientnet_pytorch/utils.py`` table; dropout unused here)
+EFFICIENTNET_PARAMS = {
+    "efficientnet-b0": (1.0, 1.0, 224),
+    "efficientnet-b1": (1.0, 1.1, 240),
+    "efficientnet-b2": (1.1, 1.2, 260),
+    "efficientnet-b3": (1.2, 1.4, 300),
+    "efficientnet-b4": (1.4, 1.8, 380),
+    "efficientnet-b5": (1.6, 2.2, 456),
+    "efficientnet-b6": (1.8, 2.6, 528),
+    "efficientnet-b7": (2.0, 3.1, 600),
+}
+
+
+def round_filters(filters: int, width: float, divisor: int = 8) -> int:
+    """Width scaling: to a multiple of ``divisor``, never more than 10 %
+    below ``filters * width``."""
+    if width == 1.0:
+        return filters
+    filters *= width
+    new = max(divisor, int(filters + divisor / 2) // divisor * divisor)
+    if new < 0.9 * filters:
+        new += divisor
+    return int(new)
+
+
+def round_repeats(repeats: int, depth: float) -> int:
+    """Depth scaling: ``ceil(depth * repeats)``."""
+    if depth == 1.0:
+        return repeats
+    return int(math.ceil(depth * repeats))
+
+
+def scaled_block_args(width: float, depth: float) -> tuple[BlockArgs, ...]:
+    return tuple(
+        a._replace(num_repeat=round_repeats(a.num_repeat, depth),
+                   cin=round_filters(a.cin, width),
+                   cout=round_filters(a.cout, width))
+        for a in B0_BLOCK_ARGS)
+
+
+def _efficientnet_backbone(name: str):
+    width, depth, res = EFFICIENTNET_PARAMS[name]
+    return (scaled_block_args(width, depth), round_filters(32, width),
+            round_filters(1280, width), res)
+
+
+# name -> (block table, stem width, head width, construction-time image
+# size): b0 and NANO, then b1 ... b7 scaled from B0's table (b0's entry is
+# the same either way)
 BACKBONES = {
     "b0": (B0_BLOCK_ARGS, 32, 1280, B0_IMAGE_SIZE),
     "nano": (NANO_BLOCK_ARGS, 8, 256, B0_IMAGE_SIZE),
 }
+BACKBONES.update({name.split("-")[1]: _efficientnet_backbone(name)
+                  for name in EFFICIENTNET_PARAMS})
 
 
 class BlockSpec(NamedTuple):

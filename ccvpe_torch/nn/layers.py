@@ -452,6 +452,17 @@ def max_pool(x: torch.Tensor, window: int) -> torch.Tensor:
     return F.max_pool2d(x.permute(0, 3, 1, 2), window).permute(0, 2, 3, 1)
 
 
+def max_pool_same(x: torch.Tensor, kernel: int, stride: int, pad: Pad2d,
+                  circular: bool = False) -> torch.Tensor:
+    """TF-'SAME' max pooling of an NCHW tensor with build-time pad amounts
+    and an optional horizontal wrap (JAX ``max_pool_same``; the reference's
+    ``MaxPool2d*SamePadding`` classes, which EfficientNet itself never
+    uses).  Zeros are padded first and the max taken after, as the
+    reference's ``F.pad`` before ``max_pool2d`` does, so a negative
+    activation at the border is clipped to 0."""
+    return F.max_pool2d(pad2d(x, pad, circular), kernel, stride)
+
+
 def drop_connect(x: torch.Tensor, rate: float, u: torch.Tensor) -> torch.Tensor:
     """Stochastic depth from given draws: ``x / keep * floor(keep + u)`` with
     keep = 1 - rate and ``u`` uniform in [0, 1) per sample, shape

@@ -36,6 +36,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from ..utils.platform import env_platform
+
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 # the layout rules' threshold: tensors of fewer elements stay replicated
@@ -111,10 +113,6 @@ def all_reduce_mean(x: torch.Tensor) -> torch.Tensor:
     return _all_reduce(x.detach().clone()) / world_size()
 
 
-def _platform() -> str:
-    return os.environ.get("CCVPE_PLATFORM", "").lower()
-
-
 def maybe_init_distributed(backend: str | None = None) -> bool:
     """Join the process group that ``torchrun`` describes (``RANK``,
     ``WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT``, ``LOCAL_RANK``); a
@@ -128,7 +126,7 @@ def maybe_init_distributed(backend: str | None = None) -> bool:
     timeout is ``CCVPE_INIT_TIMEOUT`` seconds (default 300)."""
     if dist.is_initialized() or not all(os.environ.get(k) for k in _TORCHRUN_ENV):
         return False
-    on_cuda = _platform() != "cpu" and torch.cuda.is_available()
+    on_cuda = env_platform() != "cpu" and torch.cuda.is_available()
     if on_cuda:
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
     backend = backend or ("nccl" if on_cuda else "gloo")
@@ -187,7 +185,7 @@ def create_mesh(n_data: int | None = None, n_model: int = 1, device_type: str | 
         raise ValueError(f"a {n_data}x{n_model} mesh needs {n_data * n_model} ranks, "
                          f"the process group has {world}")
     if device_type is None:
-        device_type = "cuda" if _platform() != "cpu" and torch.cuda.is_available() else "cpu"
+        device_type = "cuda" if env_platform() != "cpu" and torch.cuda.is_available() else "cpu"
     return init_device_mesh(device_type, (n_data, n_model), mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
 
 

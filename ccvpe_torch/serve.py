@@ -36,7 +36,6 @@ or the single-pair admission is full.
 ``--quantize int8`` serves the int8 post-training-quantized model
 (``api.CVMModel.quantize_int8``), calibrated on ``--calib_dir``'s image
 pairs (``load_calibration_pairs``) or, without it, on one synthetic batch.
-Not ported yet: ``--mesh`` (ROADMAP.md Queue 1 item 7) exits naming its item.
 """
 
 from __future__ import annotations
@@ -563,9 +562,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from . import api
-    from .train.cli import cli_device
+    from .utils.platform import env_device
 
-    device = cli_device()
+    device = env_device()
     model = api.load_model(args.checkpoint, preset=args.preset, device=device,
                            matching_impl=args.matching_impl,
                            mesh=serve_mesh(args.mesh, device))

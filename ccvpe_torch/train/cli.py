@@ -15,7 +15,6 @@ import argparse
 import os
 
 import numpy as np
-import torch
 
 from ..parallel import mesh
 from .harness import Trainer
@@ -96,20 +95,6 @@ def run_main(body, argv=None):
     ret = body(argv)
     mesh.finalize_run()
     return ret
-
-
-def cli_device() -> torch.device:
-    """``cpu`` when ``CCVPE_PLATFORM=cpu`` (as the JAX CLIs'
-    ``utils/platform.py`` reads it), else ``cuda``, which must be there."""
-    platform = os.environ.get("CCVPE_PLATFORM", "").lower()
-    if platform == "cpu":
-        return torch.device("cpu")
-    if platform not in ("", "cuda", "gpu"):
-        raise SystemExit(f"CCVPE_PLATFORM={platform!r}: ccvpe_torch runs on 'cuda' or 'cpu'")
-    if not torch.cuda.is_available():
-        raise RuntimeError("ccvpe_torch's CLIs run on a CUDA device and none is available; "
-                           "set CCVPE_PLATFORM=cpu to run on the CPU")
-    return torch.device("cuda")
 
 
 def make_trainer(cfg, args, *, label: str, checkpoint_dir: str, device) -> Trainer:

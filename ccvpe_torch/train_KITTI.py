@@ -20,6 +20,7 @@ import os
 import numpy as np
 
 from .train import cli
+from .utils.platform import env_device
 
 
 def parse_args(argv=None):
@@ -57,7 +58,7 @@ def _main(argv=None):
     from .data import kitti, pipeline
     from .models import cvm
 
-    device = cli.cli_device()
+    device = env_device()
     if args.model_preset not in cvm.PRESETS:
         raise SystemExit(f"unknown --model_preset {args.model_preset!r}; "
                          f"choose from {sorted(cvm.PRESETS)}")

@@ -20,6 +20,7 @@ import os
 import numpy as np
 
 from .train import cli
+from .utils.platform import env_device
 
 
 def parse_args(argv=None):
@@ -48,7 +49,7 @@ def _main(argv=None):
     from .models import cvm
     from .train.metrics import OXFORD_METER_PER_PIXEL
 
-    device = cli.cli_device()
+    device = env_device()
     if args.model_preset not in cvm.PRESETS:
         raise SystemExit(f"unknown --model_preset {args.model_preset!r}; "
                          f"choose from {sorted(cvm.PRESETS)}")

@@ -24,6 +24,7 @@ import os
 import numpy as np
 
 from .train import cli
+from .utils.platform import env_device
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -64,7 +65,7 @@ def _main(argv=None):
     from .models import cvm
     from .train.metrics import VIGOR_METER_PER_PIXEL
 
-    device = cli.cli_device()
+    device = env_device()
     if args.model_preset not in cvm.PRESETS:
         raise SystemExit(f"unknown --model_preset {args.model_preset!r}; "
                          f"choose from {sorted(cvm.PRESETS)}")

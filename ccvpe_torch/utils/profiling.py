@@ -6,9 +6,9 @@
 * ``annotate(name)``: a named range in that trace (``record_function``).
 * ``StepTimer``: wall-clock step times with a percentile summary.
 
-The JAX package's ``trace_analysis.py`` (XLA trace-event parsing) and
-``compilation_cache.py`` (XLA's persistent compile cache) have no
-counterpart here: both are specific to XLA.
+``utils/trace_analysis.py`` reads the trace back into the JAX package's
+per-kernel report.  JAX's ``compilation_cache.py`` (XLA's persistent
+compile cache) has no counterpart: see ``utils/platform.py``.
 """
 
 from __future__ import annotations

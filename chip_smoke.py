@@ -131,6 +131,29 @@ Phases, each printing one JSON line:
    one-device model (the same pixel, heatmap 1e-7, heading 0.1°), a batch
    of one on the first replica alone, and ``serve --mesh data`` answering
    as ``predict_batch``.
+10. visualize (after ``cli``, on the same roots): ``python -m
+   ccvpe_torch.visualize``'s forward, ``predict_sample``, at full width:
+   VIGOR (the ``model`` phase's model) at ``--ori_noise 180`` (the shipped
+   frozen orientations) and ``36``, one KITTI and one Oxford sample; each
+   through the kernels against the plain versions (the same
+   ``loc_pred``/``loc_gt`` and GT, heatmap 1e-7, orientation 1e-3), K1/K2
+   launches by kernel and layout.  ``render`` is not run on the card (its
+   machine has no matplotlib); it is tested on the CPU.
+11. export (after ``quant``): ``api.export_model`` of the ``model`` phase's
+   VIGOR model at batch 8 and at ``batch="dynamic"`` (served at 8 and 3)
+   and of the ``quant`` phase's int8 model at batch 8, reloaded with
+   ``api.load_exported``: each answer equal to the same model's
+   ``predict_batch`` through the plain matching exactly (the export traces
+   the plain matching by design: no K1/K2 launch) and to the kernel path's
+   at the ``model`` phase's gates; export seconds, exported against
+   ``predict_batch`` pairs/s.
+12. backbones: ``EfficientNet("b1")`` ... ``("b7")`` at their own
+   resolutions, batch 2, float32, TF32 off, BN calibrated on that batch,
+   against the CPU at batch 1 (``phase_backbones``); ms per forward, peak
+   GiB.
+
+The ``timing`` and ``train`` phases' kernel lists come from
+``ccvpe_torch.utils.trace_analysis`` (``profile_durations``, ``summarize``).
 
 Then the ``kernels`` summary line, the raw ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script then exits
@@ -170,6 +193,7 @@ from ccvpe_torch.ops import gt as GT
 from ccvpe_torch.ops import matching as TM
 from ccvpe_torch.ops import matching_cuda as MC
 from ccvpe_torch.train import loop as TLOOP
+from ccvpe_torch.utils import trace_analysis as TA
 
 DEADLINE_S = 1100   # the whole run, build included, must end well inside 1200 s
 BATCH = 8
@@ -987,19 +1011,14 @@ def _train_profile(state, batch, gen, dev: dict, out: Path | None) -> dict:
     if split["matching_backward_nodes"] != 6 or not split["matching_backward"] > 0:
         raise AssertionError(f"the profile shows {split['matching_backward_nodes']} matching "
                              f"backward nodes with {split['matching_backward']} device ms")
-    events = prof.key_averages()
-    # kernels only: a profiler range also shows as a device-side span
-    ranges = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU}
-    rows = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in events
-                   if e.device_time_total > 0 and e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.key not in ranges),
-                  key=lambda r: -r[1])
     if out is not None:
         (out / "train_profile.txt").write_text(
-            events.table(sort_by="device_time_total", row_limit=60))
+            prof.key_averages().table(sort_by="device_time_total", row_limit=60))
         prof.export_chrome_trace(str(out / "train_trace.json"))
+    top = TA.summarize_profile(prof, iters=1, top=15)["top_ops"]
     info = {"phase": "train_profile", "card": dev["nvidia_smi"], "device_ms": split,
-            "top": [{"kernel": k[:90], "ms": ms, "launches": c} for k, ms, c in rows[:15]]}
+            "top": [{"kernel": r["name"][:90], "ms": r["ms_per_iter"], "launches": r["launches"]}
+                    for r in top]}
     emit(info)
     return info
 
@@ -2403,23 +2422,19 @@ def _profile(model, grd, sat, out: Path | None) -> dict:
             model.predict_batch(grd, sat)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / 3 * 1e3
-    events = prof.key_averages()
-    attr = "device_time_total" if hasattr(events[0], "device_time_total") else "cuda_time_total"
-    rows = sorted(((e.key, getattr(e, attr) / 3e3, e.count / 3) for e in events
-                   if getattr(e, attr) > 0 and e.device_type == torch.autograd.DeviceType.CUDA),
-                  key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows)
     if out is not None:
-        (out / "profile.txt").write_text(events.table(sort_by=attr, row_limit=60))
+        (out / "profile.txt").write_text(
+            prof.key_averages().table(sort_by="device_time_total", row_limit=60))
         prof.export_chrome_trace(str(out / "trace.json"))
-    mine = [r for r in rows if any(k in r[0] for k in
-                                   ("match_row_kernel", "match_warp_kernel", "match_tile_kernel",
-                                    "match_scores_tile_kernel"))]
-    return {"device_ms_per_call": busy, "wall_ms_per_call_profiled": wall_ms,
-            "matching_kernels_ms_per_call": sum(r[1] for r in mine),
-            "matching_kernel_launches_per_call": sum(r[2] for r in mine),
-            "top": [{"kernel": k[:90], "ms_per_call": ms, "launches_per_call": c}
-                    for k, ms, c in rows[:15]]}
+    durations, counts = TA.profile_durations(prof)
+    mine = [k for k in durations if any(n in k for n in MATCH_KERNELS)]
+    return {"device_ms_per_call": sum(durations.values()) / 3e3,
+            "wall_ms_per_call_profiled": wall_ms,
+            "matching_kernels_ms_per_call": sum(durations[k] for k in mine) / 3e3,
+            "matching_kernel_launches_per_call": sum(counts[k] for k in mine) / 3,
+            "top": [{"kernel": r["name"][:90], "ms_per_call": r["ms_per_iter"],
+                     "launches_per_call": r["launches"]}
+                    for r in TA.summarize(durations, iters=3, top=15, counts=counts)["top_ops"]]}
 
 
 SERVE_KEYS = ((180.0, 360.0), (36.0, 360.0), (180.0, 180.0))
@@ -2909,7 +2924,8 @@ def _serve_int8(model: api.CVMModel, tmp: str) -> dict:
             raise AssertionError("serve --quantize int8 did not stop")
 
 
-def phase_quant(dev: dict, model: api.CVMModel, out: Path | None) -> dict:
+def phase_quant(dev: dict, model: api.CVMModel, out: Path | None
+                ) -> tuple[dict, api.CVMModel]:
     """int8 post-training quantization of the ``model`` phase's VIGOR model
     (a copy; batch 8, TF32 off unless said): ``quantize_int8`` on a seeded
     batch (seconds); ``torch._int_mm``'s limits on this card; every int8
@@ -2919,7 +2935,8 @@ def phase_quant(dev: dict, model: api.CVMModel, out: Path | None) -> dict:
     phase's tolerances; K1/K2 launches and int8 products counted from 0);
     the int8 readout's distance from the float32 model's (not gated);
     int8 against float32 pairs/s (TF32 off and on), peak GiB, device ms by
-    part; ``serve --quantize int8``'s requests/s and answers."""
+    part; ``serve --quantize int8``'s requests/s and answers.  Returns the
+    phase's numbers and the int8 model."""
     import copy
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3019,19 +3036,250 @@ def phase_quant(dev: dict, model: api.CVMModel, out: Path | None) -> dict:
     info.update(timing=timing, peak=peak, profile={
         "int8": _quant_profile(qmodel, grd, sat, out),
         "float32": _quant_profile(model, grd, sat, None)})
-    del qmodel, plain
+    del plain
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="ccvpe_smoke_quant_") as tmp:
         info["serve"] = _serve_int8(model, tmp)
     info["seconds"] = time.perf_counter() - t_phase
     emit(info)
+    return info, qmodel
+
+
+# visualize: one sample per setting through ``predict_sample`` on the card,
+# kernels against the plain versions (``render`` draws with matplotlib,
+# which the card's machine lacks: it is tested on the CPU)
+VISUALIZE_SETTINGS = (("VIGOR", "vigor", ["--ori_noise", "180"]),
+                      ("VIGOR", "vigor", ["--ori_noise", "36"]),
+                      ("KITTI", "kitti", []), ("OxfordRobotCar", "oxford", []))
+
+
+def phase_visualize(dev: dict, model: api.CVMModel, roots: dict) -> dict:
+    """``python -m ccvpe_torch.visualize``'s forward (``predict_sample``) at
+    full width on the seeded roots: VIGOR (the ``model`` phase's model) at
+    ``--ori_noise 180`` (the shipped frozen orientations) and ``36``, one
+    KITTI and one Oxford sample (seeded, BN-calibrated models); each through
+    the kernels and again through the plain versions: the same
+    ``loc_pred``/``loc_gt``, heatmap 1e-7, orientation 1e-3, the same GT;
+    K1/K2 launches by kernel and layout, counted from 0 per setting."""
+    from ccvpe_torch import visualize
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    nets = {"VIGOR": model.net}
+    for preset in ("KITTI", "OxfordRobotCar"):
+        m = api.load_model(preset=preset, seed=0)
+        _calibrate(m, seed=1)
+        nets[preset] = m.net
+    results, launches = [], {}
+    for dataset, root, extra in VISUALIZE_SETTINGS:
+        argv = ["--dataset", dataset, "--dataset_root", roots[root], "--idx", "1", *extra]
+        args = visualize.parse_args(argv)
+        cfg = cvm.PRESETS[dataset]
+        # the main path, every launch counter at 0 just before it
+        MC.reset_launch_counts()
+        got = visualize.predict_sample(dataset, args, cfg, nets[dataset], torch.device("cuda"))
+        counts = MC.launch_counts()
+        by_layout = {f"{k} {lay}": n for (k, lay), n in MC.launch_counts("layout").items() if n}
+        n_k1 = sum(cg == cs for _, cs, cg, _ in preset_scales(cfg))
+        prior = args.ori_noise < 180
+        want = {"matching_epilogue": n_k1, "matching_scores": 6 - n_k1 + prior}
+        if counts != want:
+            raise AssertionError(f"visualize {dataset} {extra}: launches {counts}, want {want}")
+        ref = visualize.predict_sample(dataset, visualize.parse_args([*argv, "--matching_impl",
+                                                                      "plain"]),
+                                       cfg, nets[dataset], torch.device("cuda"))
+        sat_img, heatmap, ori, gt = got
+        locs = [tuple(int(v) for v in np.unravel_index(a.argmax(), a.shape))
+                for a in (heatmap, gt, ref[1], ref[3])]
+        errs = {"heatmap": float(np.abs(heatmap - ref[1]).max()),
+                "ori": float(np.abs(ori - ref[2]).max())}
+        if (heatmap.shape != cfg.sat_hw or ori.shape != (*cfg.sat_hw, 2)
+                or gt.shape != cfg.sat_hw or sat_img.shape != (*cfg.sat_hw, 3)):
+            raise AssertionError(f"visualize {dataset}: shapes {sat_img.shape} {heatmap.shape} "
+                                 f"{ori.shape} {gt.shape}")
+        if not (np.isfinite(heatmap).all() and np.isfinite(ori).all()):
+            raise AssertionError(f"visualize {dataset} {extra}: non-finite output")
+        if (locs[0], locs[1]) != (locs[2], locs[3]) or not np.array_equal(gt, ref[3]):
+            raise AssertionError(f"visualize {dataset} {extra}: loc_pred/loc_gt {locs[:2]} "
+                                 f"against plain {locs[2:]}")
+        for k, v in errs.items():
+            if not v <= MODEL_TOL[k]:
+                raise AssertionError(f"visualize {dataset} {extra}: {k} max abs err {v}")
+        launches[f"{dataset} {' '.join(extra)}".strip()] = counts
+        results.append({"dataset": dataset, "argv": extra, "loc_pred": locs[0],
+                        "loc_gt": locs[1], "max_abs_err": errs, "launches": counts,
+                        "launches_by_layout": by_layout})
+    del nets
+    gc.collect()
+    torch.cuda.empty_cache()
+    info = {"phase": "visualize", "card": dev["nvidia_smi"], "batch": 1, "dtype": "float32",
+            "tolerance": {k: MODEL_TOL[k] for k in ("heatmap", "ori")},
+            "render": "not run on the card (no matplotlib on its machine); tested on the CPU",
+            "results": results, "launches": launches,
+            "seconds": time.perf_counter() - t0}
+    emit(info)
+    return info
+
+
+def _same_poses(tag: str, got, want, exact: bool) -> dict:
+    """``got`` against ``want`` pose by pose: exactly (row, col, heatmap,
+    heading, probability), or at the ``model`` phase's gates."""
+    hm = heading = 0.0
+    for p, q in zip(got, want, strict=True):
+        hm = max(hm, float(np.abs(p.heatmap - q.heatmap).max()))
+        heading = max(heading, abs((p.orientation_deg - q.orientation_deg + 180) % 360 - 180))
+        if (p.row, p.col) != (q.row, q.col) or not np.isfinite(p.orientation_deg):
+            raise AssertionError(f"{tag}: pose {p} against {q}")
+        if exact and (p.orientation_deg != q.orientation_deg
+                      or p.probability != q.probability):
+            raise AssertionError(f"{tag}: pose {p} against {q}")
+    if (exact and hm) or hm > MODEL_TOL["heatmap"] or heading > HEADING_TOL_DEG:
+        raise AssertionError(f"{tag}: heatmap {hm}, heading {heading} deg")
+    return {"heatmap_max_abs_err": hm, "heading_err_deg": heading}
+
+
+def phase_export(dev: dict, model: api.CVMModel, qmodel: api.CVMModel) -> dict:
+    """``api.export_model`` of the ``model`` phase's VIGOR model on the card
+    at batch 8 and at ``batch="dynamic"`` (served at 8 and 3), reloaded with
+    ``load_exported``: each answer equals ``CVMModel(matching_impl="plain")
+    .predict_batch`` exactly (row, col, heatmap, heading, probability) and
+    the kernel path's at the ``model`` phase's gates; the ``quant`` phase's
+    int8 model exported at batch 8 equals its own plain ``predict_batch``.
+    The export traces the plain matching (no K1/K2 launch) by design.
+    Export seconds, exported and ``predict_batch`` pairs/s."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    info = {"phase": "export", "card": dev["nvidia_smi"], "preset": cfg.name,
+            "dtype": "float32", "matching": "plain (the export traces no kernel launch)",
+            "runs": {}}
+    with tempfile.TemporaryDirectory(prefix="ccvpe_smoke_export_") as tmp:
+        for tag, m, batch, served in (("float32", model, BATCH, (BATCH,)),
+                                      ("float32", model, "dynamic", (BATCH, 3)),
+                                      ("int8", qmodel, BATCH, (BATCH,))):
+            plain = api.CVMModel(cfg, m.net, m.device, matching_impl="plain")
+            path = f"{tmp}/{tag}_{batch}"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            api.export_model(m, path, batch=batch)
+            export_s = time.perf_counter() - t0
+            exported = api.load_exported(path)
+            run = {"export_seconds": export_s, "files": sorted(os.listdir(path)),
+                   "checks": {}}
+            for b in served:
+                grd, sat = _images(cfg, b, seed=70 + b)
+                MC.reset_launch_counts()
+                got = exported.predict_batch(grd, sat, return_heatmap=True)
+                if sum(MC.launch_counts().values()):
+                    raise AssertionError(f"the exported program launched {MC.launch_counts()}")
+                name = f"{tag} batch={batch} served at {b}"
+                run["checks"][b] = {
+                    "vs_plain": _same_poses(name, got,
+                                            plain.predict_batch(grd, sat, return_heatmap=True),
+                                            exact=True),
+                    "vs_kernel": _same_poses(name, got,
+                                             m.predict_batch(grd, sat, return_heatmap=True),
+                                             exact=False)}
+            if batch == BATCH:
+                grd, sat = _images(cfg, BATCH, seed=80)
+                run["exported_pairs_per_s"] = _pairs_per_s(exported, grd, sat)
+                run["predict_batch_pairs_per_s"] = _pairs_per_s(m, grd, sat)
+                run["plain_predict_batch_pairs_per_s"] = _pairs_per_s(plain, grd, sat)
+            info["runs"][f"{tag} batch={batch}"] = run
+            del exported, plain
+            gc.collect()
+            torch.cuda.empty_cache()
+    info["seconds"] = time.perf_counter() - t_phase
+    emit(info)
+    return info
+
+
+BACKBONE_TOL = dict(atol=2e-4, rtol=1e-3)   # tests/test_torch_efficientnet.py's
+
+
+def _tol_ratio(got: list, want: list) -> float:
+    """The worst element of |got - want| / (atol + rtol |want|) at
+    ``BACKBONE_TOL`` over matching tensors (at most 1: within the bar)."""
+    return max((((a.double() - b.double()).abs()
+                 / (BACKBONE_TOL["atol"] + BACKBONE_TOL["rtol"] * b.double().abs())).max().item())
+               for a, b in zip(got, want, strict=True))
+
+
+def phase_backbones(dev: dict) -> dict:
+    """``EfficientNet("b1")`` ... ``("b7")``, each at its own resolution
+    (``EFFICIENTNET_PARAMS``), batch 2, float32, TF32 off, seeded weights,
+    BN statistics calibrated on that batch; the first sample's head features
+    and block outputs against the same module on the CPU at batch 1.  The
+    bar is ``BACKBONE_TOL`` against the CPU's float64 forward, widened to
+    twice the CPU's own float32 distance from it where that is larger (B6's
+    and B7's 45 and 55 blocks of float32 rounding reach the file's
+    tolerance on the CPU itself); the distance from the CPU's float32 is
+    printed beside it.  ms per forward; peak GiB, and above what was
+    resident before the forwards (the weights, the input and what earlier
+    phases left)."""
+    import copy
+
+    from ccvpe_torch.nn import efficientnet as TE
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    rows = []
+    for i, name in enumerate(f"b{k}" for k in range(1, 8)):
+        res = TE.EFFICIENTNET_PARAMS[f"efficientnet-{name}"][2]
+        net = TE.EfficientNet(name).to(memory_format=torch.channels_last)
+        TL.init_uniform_(net, torch.Generator().manual_seed(100 + i))
+        net = net.cuda()
+        x = torch.randn(2, 3, res, res, generator=torch.Generator().manual_seed(200 + i))
+        x = x.cuda().contiguous(memory_format=torch.channels_last)
+        with torch.no_grad():
+            calibrate_batch_norm_(net, lambda: net(x))
+            feat, ms = net(x)
+            got = [t[:1].cpu() for t in (feat, *ms)]
+            cpu = copy.deepcopy(net).cpu()
+            x1 = x[:1].cpu()
+            f32, ms32 = cpu(x1)
+            f64, ms64 = cpu.double()(x1.double())
+        if not all(torch.isfinite(t).all() for t in got):
+            raise AssertionError(f"{name}: non-finite output")
+        cpu_ratio = _tol_ratio([f32, *ms32], [f64, *ms64])
+        bar = max(1.0, 2 * cpu_ratio)
+        card_ratio = _tol_ratio(got, [f64, *ms64])
+        if not card_ratio <= bar:
+            raise AssertionError(f"{name}: the card is {card_ratio} x BACKBONE_TOL from the CPU's "
+                                 f"float64 forward, over its bar {bar}")
+        del cpu
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fwd_ms = time_ms(lambda: net(x), reps=10, warmup=2)
+            peak = torch.cuda.max_memory_allocated()
+        rows.append({"backbone": name, "resolution": res, "blocks": len(net._blocks),
+                     "params": sum(p.numel() for p in net.parameters()),
+                     "head": list(feat.shape),
+                     "max_abs_err_vs_cpu_f32": max((a - b).abs().max().item()
+                                                   for a, b in zip(got, [f32, *ms32])),
+                     "tol_ratio_vs_cpu_f32": _tol_ratio(got, [f32, *ms32]),
+                     "tol_ratio_vs_cpu_f64": card_ratio, "cpu_f32_tol_ratio_vs_f64": cpu_ratio,
+                     "bar": bar, "ms_per_forward": fwd_ms, "peak_gib": peak / 2 ** 30,
+                     "above_resident_gib": (peak - base) / 2 ** 30})
+        del net, x, feat, ms
+        gc.collect()
+        torch.cuda.empty_cache()
+    info = {"phase": "backbones", "card": dev["nvidia_smi"], "batch": 2, "dtype": "float32",
+            "tolerance": BACKBONE_TOL, "rows": rows, "seconds": time.perf_counter() - t_phase}
+    emit(info)
     return info
 
 
 def kernels_line(kern: dict, model: dict, presets: dict, train: dict, data: dict, cli: dict,
                  dev: dict, options: dict | None = None, serve: dict | None = None,
-                 quant: dict | None = None, parallel: dict | None = None) -> list[dict]:
+                 quant: dict | None = None, parallel: dict | None = None,
+                 visual: dict | None = None) -> list[dict]:
     """The rows of the ``kernels`` line: each kernel's times at its shapes
     (phase ``kernels``, ``model_presets``) and its launches on each main
     path, each counted from 0 just before that path ran."""
@@ -3151,6 +3399,23 @@ def kernels_line(kern: dict, model: dict, presets: dict, train: dict, data: dict
         summary[2]["launches_by_path"]["parallel_serve"] = by_key[keys[2]]["matching_scores"]
         for row in summary[:3]:
             row["launches"] = sum(row["launches_by_path"].values())
+    # the visualizer's forwards: VIGOR's K1 at both settings and K2 (the
+    # prior's bottleneck stack), and each KITTI and Oxford kernel's row
+    if visual is not None:
+        rows = {row["name"]: row for row in summary}
+        for setting, counts in visual["launches"].items():
+            preset = setting.split()[0]
+            for kernel, name in (("K1", "matching_epilogue"), ("K2", "matching_scores")):
+                if not counts[name]:
+                    continue
+                if preset == "VIGOR":
+                    row = summary[0] if kernel == "K1" else summary[1]
+                else:
+                    row = rows[f"{name} ({kernel}), {preset}"]
+                by_path = row["launches_by_path"]
+                by_path["visualize"] = by_path.get("visualize", 0) + counts[name]
+        for row in summary:
+            row["launches"] = sum(row["launches_by_path"].values())
     idle = [(row["name"], path) for row in summary
             for path, n in row["launches_by_path"].items() if not n]
     if idle:
@@ -3187,18 +3452,23 @@ def main(argv=None) -> int:
         roots = write_roots(tmp)
         data = phase_data(dev, roots)
         cli = phase_cli(dev, roots)
+        visual = phase_visualize(dev, net, roots)
     parallel = phase_parallel(dev, net)
     timing = phase_timing(dev, net, args.out)
     serve = phase_serve(dev, net)
-    quant = phase_quant(dev, net, args.out)
+    quant, qmodel = phase_quant(dev, net, args.out)
+    export = phase_export(dev, net, qmodel)
+    del qmodel
+    backbones = phase_backbones(dev)
     summary = kernels_line(kern, model, presets, train, data, cli, dev, options, serve, quant,
-                           parallel)
+                           parallel, visual)
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(json.dumps(
             {"device": dev, "kernels": {k: v for k, v in kern.items() if k != "max_err"},
              "model": model, "model_presets": presets, "train": train,
              "train_options": options, "data": data, "cli": cli, "timing": timing,
-             "serve": serve, "quant": quant, "parallel": parallel,
+             "serve": serve, "quant": quant, "parallel": parallel, "visualize": visual,
+             "export": export, "backbones": backbones,
              "seconds": time.perf_counter() - t0}, indent=1))
     emit({"kernels": summary})
     print(dev["nvidia_smi"], flush=True)

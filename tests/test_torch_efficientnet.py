@@ -30,14 +30,14 @@ def _random_bn_state(state, rng):
     return walk(state)
 
 
-@pytest.mark.parametrize("name", ["b0", "nano"])
+@pytest.mark.parametrize("name", ["b0", "nano", "b1", "b2", "b3", "b4", "b5", "b6", "b7"])
 @pytest.mark.parametrize("circular", [False, True])
 def test_backbone_config_matches_jax(name, circular):
     assert tuple(TE.backbone_config(name, circular)) == tuple(JE.backbone_config(name, circular))
 
 
 @pytest.mark.parametrize("name,hw", [("nano", (64, 128)), ("b0", (64, 128)),
-                                     ("b0", (154, 231))])
+                                     ("b0", (154, 231)), ("b1", (64, 128)), ("b3", (64, 128))])
 @pytest.mark.parametrize("circular", [False, True])
 def test_backbone_forward_parity(name, hw, circular):
     cfg = JE.backbone_config(name, circular)

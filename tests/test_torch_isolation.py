@@ -85,7 +85,8 @@ def test_native_loader_lives_outside_the_jax_package():
 
 
 @pytest.mark.parametrize("module", ["ccvpe_torch.train_VIGOR", "ccvpe_torch.train_KITTI",
-                                    "ccvpe_torch.train_OxfordRobotCar", "ccvpe_torch.eval"])
+                                    "ccvpe_torch.train_OxfordRobotCar", "ccvpe_torch.eval",
+                                    "ccvpe_torch.visualize"])
 def test_python_m_entry_points_load_no_jax(module):
     """``python -m <module> --help`` as a user runs it: it prints its flags,
     and no jax module is loaded on the way."""
@@ -111,6 +112,21 @@ def test_parallel_modules_are_covered_and_load_no_jax(module):
     its modules imports alone without loading jax or the JAX package."""
     assert ROOT / "ccvpe_torch" / "parallel" / f"{module}.py" in _sources()
     code = (f"import ccvpe_torch.parallel.{module}, sys\n"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module", ["visualize", "utils/trace_analysis", "utils/platform"])
+def test_new_modules_are_covered_and_load_no_jax(module):
+    """The visualizer and the ``utils`` modules are under the source scan
+    above, and each imports alone without loading jax or the JAX package;
+    ``load_exported`` lives in ``api``, which the scan covers too."""
+    assert ROOT / "ccvpe_torch" / f"{module}.py" in _sources()
+    name = "ccvpe_torch." + module.replace("/", ".")
+    code = (f"import {name}, sys\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

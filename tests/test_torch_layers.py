@@ -165,6 +165,25 @@ def test_max_pool(window):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("hw", [(11, 13), (8, 8), (7, 5)])
+@pytest.mark.parametrize("kernel,stride", [(3, 2), (3, 1), (5, 2), (2, 2)])
+@pytest.mark.parametrize("circular", [False, True])
+@pytest.mark.parametrize("channels_last", [False, True])
+def test_max_pool_same(hw, kernel, stride, circular, channels_last):
+    """Negative inputs: the zero pad clips the border maxima to 0 in both."""
+    x = (np.random.default_rng(7).standard_normal((2, *hw, 3)) - 2.0).astype(np.float32)
+    pad = TL.same_pad(hw, kernel, stride)
+    want = JL.max_pool_same(jnp.asarray(x), kernel, stride, pad, circular)
+    t = _nchw(x)
+    if channels_last:
+        t = t.contiguous(memory_format=torch.channels_last)
+    got = TL.max_pool_same(t, kernel, stride, pad, circular)
+    assert _nhwc(got).shape == want.shape
+    np.testing.assert_array_equal(_nhwc(got), np.asarray(want))
+    if any(p for side in pad for p in side) and not circular:
+        assert (np.asarray(want) == 0).any()
+
+
 @pytest.mark.parametrize("shape", [(4, 9, 7, 6), (1, 1, 3, 6)])
 def test_batch_norm_train_channels_last(shape):
     """Batch statistics in, biased variance to normalise, unbiased variance
