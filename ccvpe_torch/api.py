@@ -36,6 +36,7 @@ import torch
 from . import resolve_device
 from .data.transforms import normalize_images
 from .train.metrics import angle_from_cos_sin
+from .utils.profiling import annotate
 
 if TYPE_CHECKING:
     from .models import cvm
@@ -136,10 +137,12 @@ class CVMModel:
             grd = grd[:, :, :w]
             circular = False
         with torch.inference_mode():
-            out = self.net(self._normalized(grd), self._normalized(sat),
-                           loc_offsets=_offsets(ori_noise), circular=circular,
-                           matching_impl=self.matching_impl)
-            return out, pose_readout(out, want_heatmap=return_heatmap)
+            with annotate("predict.upload"):
+                grd, sat = self._normalized(grd), self._normalized(sat)
+            with annotate("predict.forward"):
+                out = self.net(grd, sat, loc_offsets=_offsets(ori_noise), circular=circular,
+                               matching_impl=self.matching_impl)
+                return out, pose_readout(out, want_heatmap=return_heatmap)
 
     def predict_batch(self, grd: np.ndarray, sat: np.ndarray, *,
                       ori_noise: float = 180.0, fov: float = 360.0,
@@ -147,18 +150,24 @@ class CVMModel:
         """grd [B, H, W, 3] uint8 (model-sized), sat [B, H, W, 3] uint8.
 
         ``fov < 360`` crops the panorama to its leading ``fov/360`` width
-        and turns the ground encoder's circular padding off."""
+        and turns the ground encoder's circular padding off.  Under a
+        profiler a call shows as the spans ``predict.upload`` and
+        ``predict.forward`` (one each per replica), ``predict.fetch`` (the
+        call's one wait for the device) and ``predict.poses``."""
         n = len(self.replicas)
         kw = dict(ori_noise=ori_noise, fov=fov, return_heatmap=return_heatmap)
         if n > 1 and grd.shape[0] % n == 0:
             # every replica's forward is issued before any readout is fetched
             rs = [rep.forward_readout(g, s, **kw)[1] for rep, g, s in
                   zip(self.replicas, np.split(grd, n), np.split(sat, n))]
-            r = {k: np.concatenate([ri[k].cpu().numpy() for ri in rs]) for k in rs[0]}
+            with annotate("predict.fetch"):
+                r = {k: np.concatenate([ri[k].cpu().numpy() for ri in rs]) for k in rs[0]}
         else:
             _, r = self.forward_readout(grd, sat, **kw)
-            r = {k: v.cpu().numpy() for k, v in r.items()}
-        return _poses_from_readout(r, grd.shape[0], return_heatmap)
+            with annotate("predict.fetch"):
+                r = {k: v.cpu().numpy() for k, v in r.items()}
+        with annotate("predict.poses"):
+            return _poses_from_readout(r, grd.shape[0], return_heatmap)
 
     def quantize_int8(self, calib: Sequence[tuple] | None = None, *,
                       ori_noise: float = 180.0, select: str = "all") -> "CVMModel":

@@ -25,6 +25,13 @@ what the backward recomputes instead of keeping (JAX ``forward(...,
 remat=)``): the MBConv blocks of both encoders, each decoder stage, or
 both.
 
+Under a profiler the forward shows as four spans
+(``utils.profiling.annotate``): ``cvm.ground_encoder`` (the ground
+EfficientNet and the six descriptor heads), ``cvm.aerial_encoder`` (the
+aerial EfficientNet and the descriptor grid), ``cvm.localization_decoder``
+(the six matching and upsampling stages and the softmax) and
+``cvm.orientation_decoder``.
+
 The forward runs in the inputs' dtype: float32, or bfloat16 with every
 weight cast at its op (``nn.layers``); the matching accumulates in float32
 and returns the inputs' dtype.
@@ -51,6 +58,7 @@ from ..nn.layers import (
     l2_normalize,
 )
 from ..ops import matching
+from ..utils.profiling import annotate
 
 N_SCALES = 6
 B0_SKIP_BLOCKS = (15, 10, 4, 2, 0)
@@ -295,43 +303,47 @@ class CVM(nn.Module):
         loc_bins = full_bins if loc_offsets is None else tuple(int(o) for o in loc_offsets)
 
         cl = torch.channels_last
-        grd = _nchw(grd).contiguous(memory_format=cl)
-        sat = _nchw(sat).contiguous(memory_format=cl)
-        grd_feat, _ = self.grd_efficientnet(grd, circular, generator, remat_enc)
-        descs = [self._grd_descriptor(k, grd_feat) for k in range(N_SCALES)]
-        sat_feat, ms = self.sat_efficientnet(sat, generator=generator, remat=remat_enc)
-        skips = [ms[i] for i in cfg.skip_blocks]
-        sat_desc = self._sat_descriptor_grid(sat_feat)        # NHWC, contiguous
+        with annotate("cvm.ground_encoder"):
+            grd = _nchw(grd).contiguous(memory_format=cl)
+            grd_feat, _ = self.grd_efficientnet(grd, circular, generator, remat_enc)
+            descs = [self._grd_descriptor(k, grd_feat) for k in range(N_SCALES)]
+        with annotate("cvm.aerial_encoder"):
+            sat = _nchw(sat).contiguous(memory_format=cl)
+            sat_feat, ms = self.sat_efficientnet(sat, generator=generator, remat=remat_enc)
+            skips = [ms[i] for i in cfg.skip_blocks]
+            sat_desc = self._sat_descriptor_grid(sat_feat)    # NHWC, contiguous
 
         stacks = []
         x = sat_desc
-        for s in range(N_SCALES):
-            g = descs[s]
-            if g.shape[-1] == x.shape[-1]:
-                stack, smax, xnorm = epilogue_fn(x, g, cfg.shifts[s], loc_bins, cfg.window)
-            else:
-                stack = scores_fn(x, g, cfg.shifts[s], loc_bins, cfg.window)
-                smax = stack.amax(dim=-1, keepdim=True)
-                xnorm = l2_normalize(x, dim=-1)
-            if s == 0:
-                sat_desc_norm = xnorm  # bin-independent; reused by the ori branch
-                if loc_bins != full_bins:
-                    stack = scores_fn(x, g, cfg.shifts[s], full_bins, cfg.window)
-            stacks.append(stack)
-            skip = skips[s] if s < 5 else None
-            if remat_dec:
-                y = checkpoint(self._loc_stage, s, smax, xnorm, skip)
-            else:
-                y = self._loc_stage(s, smax, xnorm, skip)
-            x = _nhwc(y)
+        with annotate("cvm.localization_decoder"):
+            for s in range(N_SCALES):
+                g = descs[s]
+                if g.shape[-1] == x.shape[-1]:
+                    stack, smax, xnorm = epilogue_fn(x, g, cfg.shifts[s], loc_bins, cfg.window)
+                else:
+                    stack = scores_fn(x, g, cfg.shifts[s], loc_bins, cfg.window)
+                    smax = stack.amax(dim=-1, keepdim=True)
+                    xnorm = l2_normalize(x, dim=-1)
+                if s == 0:
+                    sat_desc_norm = xnorm  # bin-independent; reused by the ori branch
+                    if loc_bins != full_bins:
+                        stack = scores_fn(x, g, cfg.shifts[s], full_bins, cfg.window)
+                stacks.append(stack)
+                skip = skips[s] if s < 5 else None
+                if remat_dec:
+                    y = checkpoint(self._loc_stage, s, smax, xnorm, skip)
+                else:
+                    y = self._loc_stage(s, smax, xnorm, skip)
+                x = _nhwc(y)
 
-        b = x.shape[0]
-        logits = x.reshape(b, -1)
-        heatmap = F.softmax(logits, dim=-1).reshape(x.shape)
+            b = x.shape[0]
+            logits = x.reshape(b, -1)
+            heatmap = F.softmax(logits, dim=-1).reshape(x.shape)
 
-        y = _nchw(torch.cat([stacks[0], sat_desc_norm], dim=-1))
-        for s in range(N_SCALES):
-            args = ("_ori", s, y, skips[s] if s < 5 else None)
-            y = checkpoint(self._stage, *args) if remat_dec else self._stage(*args)
-        ori = _nhwc(l2_normalize(y, dim=1))
+        with annotate("cvm.orientation_decoder"):
+            y = _nchw(torch.cat([stacks[0], sat_desc_norm], dim=-1))
+            for s in range(N_SCALES):
+                args = ("_ori", s, y, skips[s] if s < 5 else None)
+                y = checkpoint(self._stage, *args) if remat_dec else self._stage(*args)
+            ori = _nhwc(l2_normalize(y, dim=1))
         return CVMOutputs(logits, heatmap, ori, tuple(stacks))

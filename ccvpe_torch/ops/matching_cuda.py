@@ -47,6 +47,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import annotate
 from . import _build
 from .matching import bin_shifts, matching_epilogue_plain, matching_scores_plain
 
@@ -524,7 +525,10 @@ def launch_matching_scores(x, g, shift, offsets, window, layout=None):
 
 
 def _plain_grads(plain, x, g, args, grads_out):
-    with torch.enable_grad():
+    """The kernels' backward: autograd through the plain version, in the
+    span ``matching.backward`` (on autograd's thread, so the kernels it
+    launches are the span's children)."""
+    with annotate("matching.backward"), torch.enable_grad():
         xr = x.detach().requires_grad_()
         gr = g.detach().requires_grad_()
         outs = plain(xr, gr, *args)

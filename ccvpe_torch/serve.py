@@ -92,7 +92,7 @@ class MicroBatcher:
         self.max_wait_s = max_wait_ms / 1e3
         self.ori_noise = ori_noise
         self.fov = fov
-        self.dispatches = 0     # device batches run (observability/tests)
+        self.dispatches = 0     # device batches run (/metrics ``batches``)
         self.items_served = 0   # requests served across those batches
         self.rejections = 0     # overload rejections (503s)
         self._queue: "queue.Queue" = queue.Queue(
@@ -233,7 +233,9 @@ class PoseService:
 
     def metrics(self) -> dict:
         """Cumulative request/error counts plus p50/p95/max latency (ms)
-        over the last <=10k successful requests."""
+        over the last <=10k successful requests; over the micro-batchers,
+        ``batches`` (device batches run) and ``batch_fill`` (requests served
+        over the slots of those batches; None before the first)."""
         with self._stats_lock:
             lat = list(self._latencies_ms)
             requests, errors = self._requests, self._errors
@@ -241,13 +243,19 @@ class PoseService:
                "latency_window": len(lat)}
         # overload observability: live queue depth + cumulative 503s
         depth, rejections = 0, self._rejections_direct
+        batches = served = 0
         if self.batchers is not None:
             with self._batchers_lock:
                 for b in self.batchers.values():
                     depth += b.queue_depth()
                     rejections += b.rejections
+                    # items first: the worker counts a batch before its items
+                    served += b.items_served
+                    batches += b.dispatches
         out["queue_depth"] = depth
         out["rejections"] = rejections
+        out["batches"] = batches
+        out["batch_fill"] = served / (batches * self.batch) if batches else None
         if lat:
             lat.sort()
             out["latency_ms"] = {

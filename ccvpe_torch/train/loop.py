@@ -40,18 +40,22 @@ import contextlib
 from dataclasses import dataclass, field
 
 import torch
-from torch.profiler import record_function
 
 from .. import resolve_device
 from ..models import cvm
 from ..parallel import mesh
 from ..parallel.zero import Zero1Adam
+from ..utils.profiling import annotate
 from . import losses
 
 
-# profiler ranges of a train step: forward and loss; the gradient norm and
-# Adam.  The backward runs on autograd's device threads, outside both.
+# profiler ranges of a train step (``utils.profiling.annotate``): the
+# gradients' reset; forward and loss; the backward call, which returns once
+# autograd's device threads have launched the whole backward (their ops lie
+# outside every range of this thread); the gradient norm and Adam
+ZERO_GRAD_RANGE = "train_step.zero_grad"
 FORWARD_RANGE = "train_step.forward"
+BACKWARD_RANGE = "train_step.backward"
 OPTIMIZER_RANGE = "train_step.optimizer"
 
 
@@ -289,7 +293,8 @@ def make_train_step(cfg: cvm.CVMConfig, *, weight_info_nce: float = 1e4,
                 f"{grad_accum}) does not divide the {world}-device mesh; grouped-conv "
                 f"gradients would mis-reduce — use a batch with batch % (mesh * "
                 f"grad_accum) == 0")
-        state.optimizer.zero_grad(set_to_none=True)
+        with annotate(ZERO_GRAD_RANGE):
+            state.optimizer.zero_grad(set_to_none=True)
         runner = _runner(state)
         distributed = mesh.is_distributed()
         sums: dict[str, torch.Tensor] = {}
@@ -297,7 +302,7 @@ def make_train_step(cfg: cvm.CVMConfig, *, weight_info_nce: float = 1e4,
             for j in range(grad_accum):
                 mb = {k: v[j::grad_accum] for k, v in batch.items()}
                 with _no_sync(runner, j == grad_accum - 1):
-                    with record_function(FORWARD_RANGE):
+                    with annotate(FORWARD_RANGE):
                         out = runner(mb["grd"].to(compute_dtype), mb["sat"].to(compute_dtype),
                                      matching_impl=matching_impl, generator=generator,
                                      remat=remat)
@@ -305,10 +310,11 @@ def make_train_step(cfg: cvm.CVMConfig, *, weight_info_nce: float = 1e4,
                             out, mb["gt"], mb["bin_weights"], mb["orientation"],
                             weight_info_nce=weight_info_nce, weight_ori=weight_ori,
                             global_mean=mesh.all_reduce_mean if distributed else None)
-                    (loss / grad_accum).backward()
+                    with annotate(BACKWARD_RANGE):
+                        (loss / grad_accum).backward()
                 for k, v in parts.items():
                     sums[k] = sums.get(k, 0) + v.detach()
-        with record_function(OPTIMIZER_RANGE):
+        with annotate(OPTIMIZER_RANGE):
             grads = [p.grad for p in model.parameters() if p.grad is not None]
             parts = {k: v / grad_accum for k, v in sums.items()}
             if distributed:

@@ -3,7 +3,8 @@
 * ``trace(logdir)``: a ``torch.profiler`` capture of the enclosed block (the
   host and, on a CUDA device, the card), written to ``logdir`` as a Chrome
   trace (``trace.json``; open it in Perfetto or ``chrome://tracing``).
-* ``annotate(name)``: a named range in that trace (``record_function``).
+* ``annotate(name)``: a named range in that trace (``record_function``),
+  the one way the port opens a span; a no-op while no profiler runs.
 * ``StepTimer``: wall-clock step times with a percentile summary.
 
 ``utils/trace_analysis.py`` reads the trace back into the JAX package's
@@ -19,6 +20,7 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import _profiler_enabled
 from torch.profiler import ProfilerActivity, profile, record_function
 
 TRACE_FILE = "trace.json"
@@ -40,8 +42,19 @@ def trace(logdir: str):
     prof.export_chrome_trace(os.path.join(logdir, TRACE_FILE))
 
 
+# what ``annotate`` returns while no profiler runs: ``record_function``
+# enters and leaves a RecordFunction even then, some 20 times the cost of
+# this check and an empty context
+_NO_SPAN = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    return record_function(name)
+    """A ``record_function`` range named ``name`` while a profiler runs (on
+    any thread: autograd's threads see the caller's profiler), else the
+    shared no-op context."""
+    if _profiler_enabled():
+        return record_function(name)
+    return _NO_SPAN
 
 
 class StepTimer:

@@ -126,6 +126,13 @@ def test_micro_batcher_concurrent_requests():
         assert (g["row"], g["col"]) == (want.row, want.col), (g, want)
         np.testing.assert_allclose(g["probability"], want.probability,
                                    rtol=1e-5)
+    # /metrics carries the batchers' counters: six requests in at least two
+    # batches of four slots
+    (batcher,) = service.batchers.values()
+    m = service.metrics()
+    assert m["batches"] == batcher.dispatches >= 2
+    assert batcher.items_served == 6
+    assert m["batch_fill"] == pytest.approx(6 / (4 * m["batches"]))
     service.stop()
 
 
@@ -216,6 +223,8 @@ def test_metrics_endpoint(server):
     assert m["errors"] >= 1
     assert m["latency_ms"]["p50"] > 0
     assert m["latency_ms"]["p95"] >= m["latency_ms"]["p50"]
+    # batch 1: no micro-batcher, so no device batch is counted
+    assert m["batches"] == 0 and m["batch_fill"] is None
 
 
 def test_micro_batcher_stop_mid_drain():
