@@ -17,6 +17,9 @@ scale where Cg == Cs (all six VIGOR scales) and K2 elsewhere and for the
 ori-prior full-bin bottleneck stack; on a CPU tensor, their plain versions.
 ``matching_impl="plain"`` forces the plain versions on any device.  With
 autograd on, the kernels' backward is autograd through the plain versions.
+With autograd off and ``matching_impl="kernel"``, the decoders' 24 3x3 convs
+of a CUDA float32 forward go to ``ops.conv_cuda`` (``DoubleConv``); training,
+bfloat16, int8 convs and the CPU run the conv modules.
 
 Training uses ``nn.Module.train()``: the BatchNorms normalise with batch
 statistics and update their running statistics, and a ``generator`` passed
@@ -57,7 +60,7 @@ from ..nn.layers import (
     init_uniform_,
     l2_normalize,
 )
-from ..ops import matching
+from ..ops import conv_cuda, matching
 from ..utils.profiling import annotate
 
 N_SCALES = 6
@@ -198,10 +201,27 @@ def _decoder_widths(cfg: CVMConfig, branch: str):
     return stages
 
 
-def _double_conv(cin: int, mid: int, cout: int) -> nn.Sequential:
-    # the reference's own symmetric Conv2d(padding=1) pads (not TF-SAME)
-    return nn.Sequential(Conv2d(cin, mid, 3, padding=1), nn.ReLU(),
+class DoubleConv(nn.Sequential):
+    """A decoder stage's 3x3 conv, ReLU, 3x3 conv (state-dict keys .0 and
+    .2), padded as the reference's own symmetric ``Conv2d(padding=1)`` (not
+    TF-SAME).  ``forward(x, impl)`` sends each conv that
+    ``ops.conv_cuda.takes_kernel`` accepts (``impl`` 'kernel', a CUDA
+    float32 ``x``, autograd off) to the hand-written kernel, the first with
+    the ReLU in its epilogue; the others run their modules."""
+
+    def __init__(self, cin: int, mid: int, cout: int):
+        super().__init__(Conv2d(cin, mid, 3, padding=1), nn.ReLU(),
                          Conv2d(mid, cout, 3, padding=1))
+
+    def forward(self, x: torch.Tensor, impl: str = "plain") -> torch.Tensor:
+        first, relu, second = self
+        if conv_cuda.takes_kernel(x, first, impl):
+            x = conv_cuda.conv3x3(x, first.weight, first.bias, relu=True)
+        else:
+            x = relu(first(x))
+        if conv_cuda.takes_kernel(x, second, impl):
+            return conv_cuda.conv3x3(x, second.weight, second.bias)
+        return second(x)
 
 
 def _nchw(x_nhwc: torch.Tensor) -> torch.Tensor:
@@ -232,7 +252,7 @@ class CVM(nn.Module):
                 name = N_SCALES - s  # reference names run 6..1
                 setattr(self, f"deconv{name}{suffix}", deconv2x2(d_in, d_out))
                 mid, out = (c_out, c_out) if s < 5 else c_out
-                setattr(self, f"conv{name}{suffix}", _double_conv(c_in, mid, out))
+                setattr(self, f"conv{name}{suffix}", DoubleConv(c_in, mid, out))
 
     def init_weights_(self, generator: torch.Generator) -> "CVM":
         """Seeded torch-default init; the unused classifier heads stay zero."""
@@ -260,18 +280,18 @@ class CVM(nn.Module):
         x = x.reshape(b, h // 2, w // 2, c * 4)
         return self.sat_feature_to_descriptors["1"](x)
 
-    def _stage(self, branch_suffix: str, s: int, x: torch.Tensor, skip):
+    def _stage(self, branch_suffix: str, s: int, x: torch.Tensor, skip, impl: str):
         """One decoder stage: deconv, the skip concatenated, double conv."""
         name = N_SCALES - s
         x = getattr(self, f"deconv{name}{branch_suffix}")(x)
         if s < 5:
             x = torch.cat([x, skip], dim=1)
-        return getattr(self, f"conv{name}{branch_suffix}")(x)
+        return getattr(self, f"conv{name}{branch_suffix}")(x, impl)
 
-    def _loc_stage(self, s: int, smax: torch.Tensor, xnorm: torch.Tensor, skip):
+    def _loc_stage(self, s: int, smax: torch.Tensor, xnorm: torch.Tensor, skip, impl: str):
         """A localization stage on the matching's max score and normalised map."""
         y = _nchw(torch.cat([smax, xnorm], dim=-1))           # channels_last
-        return self._stage("", s, y, skip)
+        return self._stage("", s, y, skip, impl)
 
     def forward(self, grd: torch.Tensor, sat: torch.Tensor, *, loc_offsets=None,
                 circular: bool | None = None, matching_impl: str = "kernel",
@@ -284,7 +304,10 @@ class CVM(nn.Module):
         orientation decoder still takes the full-bin bottleneck stack.
         ``circular``: override the ground encoder's wrap padding (off for a
         cropped panorama).  ``matching_impl``: 'kernel' (device dispatch:
-        the CUDA kernels on a CUDA tensor) or 'plain'.  ``generator``: the
+        the CUDA kernels on a CUDA tensor; with autograd off, the decoders'
+        3x3 convs too, ``DoubleConv``) or 'plain' (no hand-written kernel:
+        the plain matching and the conv modules, as ``export_model`` and the
+        plain runs take it).  ``generator``: the
         drop-connect draws of both backbones in train mode (None: no
         drop-connect, as the JAX forward without ``rng``).  ``remat``:
         False, True or 'all' (both encoders' MBConv blocks and every decoder
@@ -330,10 +353,8 @@ class CVM(nn.Module):
                         stack = scores_fn(x, g, cfg.shifts[s], full_bins, cfg.window)
                 stacks.append(stack)
                 skip = skips[s] if s < 5 else None
-                if remat_dec:
-                    y = checkpoint(self._loc_stage, s, smax, xnorm, skip)
-                else:
-                    y = self._loc_stage(s, smax, xnorm, skip)
+                args = (s, smax, xnorm, skip, matching_impl)
+                y = checkpoint(self._loc_stage, *args) if remat_dec else self._loc_stage(*args)
                 x = _nhwc(y)
 
             b = x.shape[0]
@@ -343,7 +364,7 @@ class CVM(nn.Module):
         with annotate("cvm.orientation_decoder"):
             y = _nchw(torch.cat([stacks[0], sat_desc_norm], dim=-1))
             for s in range(N_SCALES):
-                args = ("_ori", s, y, skips[s] if s < 5 else None)
+                args = ("_ori", s, y, skips[s] if s < 5 else None, matching_impl)
                 y = checkpoint(self._stage, *args) if remat_dec else self._stage(*args)
             ori = _nhwc(l2_normalize(y, dim=1))
         return CVMOutputs(logits, heatmap, ori, tuple(stacks))

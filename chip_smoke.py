@@ -6,7 +6,8 @@
 Phases, each printing one JSON line:
 
 1. device:  the card's name and power limit (``nvidia-smi``), torch and CUDA.
-2. build:   ``nvcc`` builds the matching kernels from ``ccvpe_torch/csrc``.
+2. build:   ``nvcc`` builds the matching and the conv kernels from
+   ``ccvpe_torch/csrc``.
 3. kernels: each kernel, in every layout that takes the shape (warp, row,
    tile), against its plain PyTorch version on the card, at the VIGOR shapes
    (batch 8; K2 with the fov=180 masked window), the ori-prior bottleneck,
@@ -19,11 +20,18 @@ Phases, each printing one JSON line:
    KITTI and Oxford shapes of the bfloat16 paths (bound at 2 bytes per
    element and the tensor cores' bfloat16 rate, ``torch.bmm`` in bfloat16
    beside it), each timed shape also checked against the plain version.
+   conv:    the decoders' 3x3 conv kernel (``ops.conv_cuda``,
+   ``csrc/conv3x3.cu``) at every decoder shape of VIGOR, KITTI and Oxford
+   at batch 8 against a float64 conv (1e-5 of the output's largest
+   magnitude, the card tests' bar); the device ms of each VIGOR and KITTI
+   shape beside cuDNN's heuristic and searched algorithms and the bound.
 4. model:   ``ccvpe_torch.api.load_model(preset="VIGOR", seed=0)`` on the
    card; ``predict_batch`` at batch 8 with ``ori_noise`` 180 and 36 and with
-   ``fov=180``, counting kernel launches by kernel and by layout (K1: tile
+   ``fov=180``, counting 24 decoder conv launches in each and kernel
+   launches by kernel and by layout (K1: tile
    at the three fine scales; K2 at fov=180: tile at four, warp at two), held
-   against the same model with matching forced to the plain versions; and a
+   against the same model with ``matching_impl="plain"`` (the plain
+   matching and the conv modules); and a
    NANO model on the card held against the same model on the CPU.
    model_presets: the KITTI (16 bins, 2048-d descriptor; with and without
    a +-2-bin prior) and Oxford RobotCar (4x7 ground grid, centred window)
@@ -189,11 +197,13 @@ from ccvpe_torch.nn import layers as TL
 from ccvpe_torch.nn import quant as TQ
 from ccvpe_torch.nn.layers import calibrate_batch_norm_
 from ccvpe_torch.ops import _build
+from ccvpe_torch.ops import conv_cuda as CC
 from ccvpe_torch.ops import gt as GT
 from ccvpe_torch.ops import matching as TM
 from ccvpe_torch.ops import matching_cuda as MC
 from ccvpe_torch.train import loop as TLOOP
 from ccvpe_torch.utils import trace_analysis as TA
+from tests.torch_conv_shapes import decoder_conv_shapes
 
 DEADLINE_S = 1100   # the whole run, build included, must end well inside 1200 s
 BATCH = 8
@@ -297,15 +307,22 @@ def phase_device() -> dict:
 
 
 def phase_build(out: Path | None) -> dict:
-    built = _build.build("matching", force=True)
-    regs = [int(m) for m in re.findall(r"Used (\d+) registers", built.log)]
-    spill = [int(a) + int(b) for a, b in
-             re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", built.log)]
-    info = {"phase": "build", "nvcc_seconds": built.seconds, "library": str(built.path),
-            "kernels_compiled": len(regs), "max_registers": max(regs, default=None),
-            "kernels_spilling": sum(1 for n in spill if n)}
-    if out is not None:
-        (out / "ptxas.log").write_text(built.log)
+    info = {"phase": "build"}
+    for name in ("matching", "conv3x3"):
+        built = _build.build(name, force=True)
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", built.log)]
+        spill = [int(a) + int(b) for a, b in
+                 re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", built.log)]
+        row = {"nvcc_seconds": built.seconds, "library": str(built.path),
+               "kernels_compiled": len(regs), "max_registers": max(regs, default=None),
+               "kernels_spilling": sum(1 for n in spill if n)}
+        if name == "matching":
+            info.update(row)
+        else:
+            info[name] = row
+        if out is not None:
+            (out / ("ptxas.log" if name == "matching" else f"ptxas.{name}.log")).write_text(
+                built.log)
     emit(info)
     return info
 
@@ -600,6 +617,93 @@ def _compare(tag, out, ref, r, rr, tol) -> dict:
     return errs
 
 
+CONV_SOURCE = "ccvpe_torch/csrc/conv3x3.cu"
+CONV_REPLACES = "none: the JAX package leaves the decoders' 3x3 convs to XLA"
+# a float32 sum of up to 12096 products in the kernel's order against the
+# float64 sum, relative to the output's largest magnitude: the card tests'
+# bar (tests/test_torch_conv_cuda.py)
+CONV_REL_TOL = 1e-5
+CONV_PRESETS = {"VIGOR": cvm.VIGOR, "KITTI": cvm.KITTI, "OxfordRobotCar": cvm.OXFORD}
+CONV_KERNELS = ("conv3x3_gemm_kernel", "conv3x3_splitk_reduce", "conv3x3_direct_kernel")
+
+
+def _conv_inputs(b, h, w, cin, cout, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, cin, h, w), generator=gen, device="cuda").relu()
+    wt = torch.randn((cout, cin, 3, 3), generator=gen, device="cuda") / (9 * cin) ** 0.5
+    bias = torch.randn((cout,), generator=gen, device="cuda") * 0.1
+    return x.contiguous(memory_format=torch.channels_last), wt, bias
+
+
+def _conv_launches() -> int:
+    return sum(CC.launch_counts().values())
+
+
+def phase_conv(dev: dict) -> dict:
+    """The decoders' 3x3 conv kernel (``ops.conv_cuda.conv3x3``) at every
+    decoder shape of VIGOR, KITTI and Oxford at batch 8, against a float64
+    conv on the card (the first conv of a pair with its ReLU, as the model
+    runs it); then, at each VIGOR and KITTI shape, the device ms of the
+    kernel, of cuDNN's heuristic choice (``F.conv2d``: the conv modules'
+    path) and of cuDNN's searched algorithm (``cudnn.benchmark``), beside
+    the bound (FLOPs at the float32 FFMA peak or bytes at the memory rate).
+    Oxford's shapes are VIGOR's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    errs, info = {}, {"phase": "conv", "card": dev["nvidia_smi"], "batch": BATCH,
+                      "dtype": "float32", "rel_tolerance": CONV_REL_TOL, "presets": {}}
+    for preset, cfg in CONV_PRESETS.items():
+        rows = []
+        for i, (name, shape) in enumerate(decoder_conv_shapes(cfg, BATCH)):
+            b, h, w, cin, cout = shape
+            relu = name.endswith(".0")
+            launch = CC.choose_plan(b, h, w, cin, cout)
+            x, wt, bias = _conv_inputs(*shape, seed=i)
+            if (shape, relu) not in errs:
+                before = _conv_launches()
+                with torch.inference_mode():
+                    got = CC.conv3x3(x, wt, bias, relu)
+                want = CC.conv3x3_plain(x.double(), wt.double(), bias.double(), relu)
+                err = (got.double() - want).abs().max().item() / want.abs().max().item()
+                if (_conv_launches() - before != 1 or not got.permute(0, 2, 3, 1).is_contiguous()
+                        or not err <= CONV_REL_TOL):
+                    raise AssertionError(f"conv3x3 {preset} {name} {shape} {launch}: error "
+                                         f"{err} of the largest output (bar {CONV_REL_TOL})")
+                errs[(shape, relu)] = err
+                del got, want
+            if preset == "OxfordRobotCar":
+                continue
+            flops = 2 * b * h * w * 9 * cin * cout
+            nbytes = 4 * (b * h * w * (cin + cout) + 9 * cin * cout + cout)
+            bound, by = _bound(nbytes, flops, dev)
+            with torch.inference_mode():
+                ms = device_ms(lambda: CC.conv3x3(x, wt, bias, relu))
+                heuristic = device_ms(lambda: torch.nn.functional.conv2d(x, wt, bias, padding=1))
+                torch.backends.cudnn.benchmark = True
+                try:
+                    search = device_ms(lambda: torch.nn.functional.conv2d(x, wt, bias, padding=1))
+                finally:
+                    torch.backends.cudnn.benchmark = False
+            rows.append({"conv": name, "shape": list(shape), "relu": relu,
+                         "launch": launch._asdict(), "ms": ms, "library_ms": heuristic,
+                         "library_search_ms": search, "bound_ms": bound, "bound_by": by,
+                         "flops": flops, "bytes": nbytes, "rel_err": errs[(shape, relu)]})
+            del x, wt, bias
+        checked = [errs[(s, n.endswith(".0"))] for n, s in decoder_conv_shapes(cfg, BATCH)]
+        entry = {"max_rel_err": max(checked), "rows": rows}
+        if rows:
+            total = {k: sum(r[k] for r in rows) for k in
+                     ("ms", "library_ms", "library_search_ms", "bound_ms", "flops", "bytes")}
+            entry.update(total, bound_by=_bound(total["bytes"], total["flops"], dev)[1],
+                         tflops=total["flops"] / total["ms"] / 1e9,
+                         pct_of_bound=100 * total["bound_ms"] / total["ms"])
+        info["presets"][preset] = entry
+    torch.cuda.empty_cache()
+    emit({**info, "presets": {k: {m: v for m, v in e.items() if m != "rows"}
+                              for k, e in info["presets"].items()}})
+    return info
+
+
 def phase_model(dev: dict) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -629,9 +733,12 @@ def phase_model(dev: dict) -> dict:
     # just before it and read just after
     poses, steps, layout_steps = [], [], []
     launches = dict.fromkeys(MC.launch_counts(), 0)
+    conv_steps = []
     for kw, _ in settings:
         MC.reset_launch_counts()
+        conv0 = _conv_launches()
         poses.append(model.predict_batch(grd, sat, return_heatmap=True, **kw))
+        conv_steps.append(_conv_launches() - conv0)
         counts = MC.launch_counts()
         steps.append((counts["matching_epilogue"], counts["matching_scores"]))
         layout_steps.append({k: n for k, n in MC.launch_counts("layout").items() if n})
@@ -640,6 +747,8 @@ def phase_model(dev: dict) -> dict:
     if steps != [w for _, w in settings]:
         raise AssertionError(f"kernel launches (K1, K2) per setting {steps}, "
                              f"want {[w for _, w in settings]}")
+    if conv_steps != [24] * len(settings):
+        raise AssertionError(f"decoder conv launches per setting {conv_steps}, want 24 each")
     for (kw, _), got in zip(settings, layout_steps):
         k1 = {k: n for k, n in got.items() if k[0] == "matching_epilogue"}
         if "fov" not in kw and k1 != k1_layouts:
@@ -672,6 +781,7 @@ def phase_model(dev: dict) -> dict:
                         "logit_spread_min": spread})
     info = {"phase": "model", "preset": "VIGOR", "batch": BATCH, "dtype": "float32",
             "setup_seconds": setup_s, "launches": launches,
+            "conv_launches_per_setting": conv_steps,
             "launches_per_setting": dict(zip(map(json.dumps, (kw for kw, _ in settings)), steps)),
             "launches_by_layout_per_setting": {
                 json.dumps(kw): {f"{k} {lay}": n for (k, lay), n in got.items()}
@@ -742,8 +852,12 @@ def phase_model_presets(dev: dict) -> dict:
         for kw in settings:
             prior = kw["ori_noise"] < 180
             MC.reset_launch_counts()
+            conv0 = _conv_launches()
             poses = model.predict_batch(grd, sat, return_heatmap=True, **kw)
+            conv = _conv_launches() - conv0
             launches = MC.launch_counts()
+            if conv != 24:
+                raise AssertionError(f"{preset} {kw}: {conv} decoder conv launches, want 24")
             by_layout = {f"{k} {lay}": n for (k, lay), n in MC.launch_counts("layout").items() if n}
             want = {"matching_epilogue": n_k1, "matching_scores": 6 - n_k1 + prior}
             if launches != want:
@@ -761,7 +875,8 @@ def phase_model_presets(dev: dict) -> dict:
                                            - 180))
             if heading > HEADING_TOL_DEG:
                 raise AssertionError(f"{preset} {kw}: heading differs by {heading} deg")
-            results.append({"setting": kw, "launches": launches, "launches_by_layout": by_layout,
+            results.append({"setting": kw, "launches": launches, "conv_launches": conv,
+                            "launches_by_layout": by_layout,
                             "rows": [p.row for p in poses], "cols": [p.col for p in poses],
                             "max_abs_err": errs, "heading_err_deg": heading,
                             "logit_spread_min": out.logits_flattened.std(dim=1).min().item()})
@@ -871,6 +986,7 @@ def phase_train(dev: dict, out: Path | None) -> dict:
     # (a) kernel against plain, one step from identical weights, no drop-connect
     k_step = TLOOP.make_train_step(cfg)
     MC.reset_launch_counts()
+    conv0 = _conv_launches()
     k_parts = k_step(state, _normalized(data))
     torch.cuda.synchronize()
     k_layouts = {k: n for k, n in MC.launch_counts("layout").items() if n}
@@ -905,6 +1021,10 @@ def phase_train(dev: dict, out: Path | None) -> dict:
     launches = MC.launch_counts()
     if launches != {"matching_epilogue": 6 * TRAIN_TIMED, "matching_scores": 0}:
         raise AssertionError(f"{TRAIN_TIMED} train steps launched {launches}")
+    # the train step's forward records autograd: its decoder convs keep the modules
+    if _conv_launches() != conv0:
+        raise AssertionError(f"the train steps launched {_conv_launches() - conv0} decoder "
+                             "conv kernels, want 0")
     step_ms = a.elapsed_time(b) / TRAIN_TIMED
     loss_values = [p["loss"].item() for p in step_parts]
     if not all(math.isfinite(v.item()) for p in step_parts for v in p.values()):
@@ -923,7 +1043,8 @@ def phase_train(dev: dict, out: Path | None) -> dict:
             "kernel_vs_plain": {**check, "launches_by_layout": {
                 f"{k} {lay}": n for (k, lay), n in k_layouts.items()}},
             "steps": TRAIN_WARMUP + TRAIN_TIMED, "timed_steps": TRAIN_TIMED,
-            "launches": launches, "losses": loss_values, "step_ms": step_ms,
+            "launches": launches, "conv_launches": _conv_launches() - conv0,
+            "losses": loss_values, "step_ms": step_ms,
             "samples_per_s": BATCH / (step_ms * 1e-3),
             "wall_samples_per_s": BATCH * TRAIN_TIMED / wall_s,
             "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
@@ -2428,7 +2549,10 @@ def _profile(model, grd, sat, out: Path | None) -> dict:
         prof.export_chrome_trace(str(out / "trace.json"))
     durations, counts = TA.profile_durations(prof)
     mine = [k for k in durations if any(n in k for n in MATCH_KERNELS)]
+    conv = [k for k in durations if any(n in k for n in CONV_KERNELS)]
     return {"device_ms_per_call": sum(durations.values()) / 3e3,
+            "conv_kernels_ms_per_call": sum(durations[k] for k in conv) / 3e3,
+            "conv_kernel_launches_per_call": sum(counts[k] for k in conv) / 3,
             "wall_ms_per_call_profiled": wall_ms,
             "matching_kernels_ms_per_call": sum(durations[k] for k in mine) / 3e3,
             "matching_kernel_launches_per_call": sum(counts[k] for k in mine) / 3,
@@ -3279,7 +3403,8 @@ def phase_backbones(dev: dict) -> dict:
 def kernels_line(kern: dict, model: dict, presets: dict, train: dict, data: dict, cli: dict,
                  dev: dict, options: dict | None = None, serve: dict | None = None,
                  quant: dict | None = None, parallel: dict | None = None,
-                 visual: dict | None = None) -> list[dict]:
+                 visual: dict | None = None, conv: dict | None = None,
+                 timing: dict | None = None) -> list[dict]:
     """The rows of the ``kernels`` line: each kernel's times at its shapes
     (phase ``kernels``, ``model_presets``) and its launches on each main
     path, each counted from 0 just before that path ran."""
@@ -3416,6 +3541,32 @@ def kernels_line(kern: dict, model: dict, presets: dict, train: dict, data: dict
                 by_path["visualize"] = by_path.get("visualize", 0) + counts[name]
         for row in summary:
             row["launches"] = sum(row["launches_by_path"].values())
+    # the decoders' 3x3 convs: their times summed over a call's 24 shapes
+    # (phase ``conv``), launches counted on each predict_batch; the train
+    # step launches none (phase ``train`` checks it)
+    if conv is not None:
+        oxford = sum(r["conv_launches"] for r in presets["presets"]["OxfordRobotCar"]["results"])
+        paths = {"VIGOR": {"predict_batch": sum(model["conv_launches_per_setting"]),
+                           "predict_batch_OxfordRobotCar": oxford},
+                 "KITTI": {"predict_batch_KITTI": sum(
+                     r["conv_launches"] for r in presets["presets"]["KITTI"]["results"])}}
+        for preset, by_path in paths.items():
+            c = conv["presets"][preset]
+            row = {"name": f"conv3x3 (decoder 3x3 convs), {preset}", "route": "cuda",
+                   "source": CONV_SOURCE, "replaces": CONV_REPLACES, "dtype": "float32",
+                   "max_rel_err": c["max_rel_err"], "ms": c["ms"], "kernel_ms": c["ms"],
+                   "plain_ms": c["library_ms"], "library_ms": c["library_ms"],
+                   "library_search_ms": c["library_search_ms"], "bound_ms": c["bound_ms"],
+                   "bound_by": c["bound_by"], "tflops": c["tflops"],
+                   "timed_at": f"sum over the 24 decoder convs of a batch-{BATCH} call",
+                   "plans": [r["launch"]["plan"] for r in c["rows"]],
+                   "launches_by_path": by_path, "launches": sum(by_path.values()),
+                   "launches_train_step": train["conv_launches"]}
+            if preset == "VIGOR" and timing is not None:
+                row["main_path_ms_per_call"] = timing["profile"]["conv_kernels_ms_per_call"]
+                row["main_path_launches_per_call"] = timing["profile"][
+                    "conv_kernel_launches_per_call"]
+            summary.append(row)
     idle = [(row["name"], path) for row in summary
             for path, n in row["launches_by_path"].items() if not n]
     if idle:
@@ -3444,6 +3595,7 @@ def main(argv=None) -> int:
     dev = phase_device()
     phase_build(args.out)
     kern = phase_kernels(dev)
+    conv = phase_conv(dev)
     model, net = phase_model(dev)
     presets = phase_model_presets(dev)
     train = phase_train(dev, args.out)
@@ -3461,11 +3613,11 @@ def main(argv=None) -> int:
     del qmodel
     backbones = phase_backbones(dev)
     summary = kernels_line(kern, model, presets, train, data, cli, dev, options, serve, quant,
-                           parallel, visual)
+                           parallel, visual, conv, timing)
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(json.dumps(
             {"device": dev, "kernels": {k: v for k, v in kern.items() if k != "max_err"},
-             "model": model, "model_presets": presets, "train": train,
+             "conv": conv, "model": model, "model_presets": presets, "train": train,
              "train_options": options, "data": data, "cli": cli, "timing": timing,
              "serve": serve, "quant": quant, "parallel": parallel, "visualize": visual,
              "export": export, "backbones": backbones,
