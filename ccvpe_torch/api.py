@@ -8,7 +8,9 @@
 
 Images are uint8 RGB arrays (HWC); ``predict`` resizes them on the host,
 ``predict_batch`` takes model-sized batches.  Normalisation, the forward and
-the pose readout run on the model's device under ``torch.inference_mode``.
+the pose readout run on the model's device under ``torch.inference_mode``;
+on a CUDA device with the kernels (``matching_impl="kernel"``) as CUDA graphs,
+captured at the first call of each shape and setting (``GraphedForward``).
 ``model.quantize_int8(calib)`` turns a serving model into its int8
 post-training-quantized form.  ``load_model(..., mesh="data")`` serves
 from one replica per visible CUDA device (``predict_batch`` splits the
@@ -25,8 +27,11 @@ where it builds or exports one):
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import os
+import threading
 from dataclasses import dataclass
 from typing import TYPE_CHECKING, Sequence
 
@@ -34,7 +39,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .data.transforms import normalize_images
+from .data.transforms import imagenet_stats, normalize_images
 from .train.metrics import angle_from_cos_sin
 from .utils.profiling import annotate
 
@@ -79,6 +84,81 @@ def _poses_from_readout(r: dict[str, np.ndarray], batch: int,
     return poses
 
 
+def graph_signature(grd: np.ndarray, sat: np.ndarray, circular: bool | None, offsets,
+                    return_heatmap: bool, tf32: tuple[bool, bool]) -> tuple:
+    """What fixes a ``predict_batch`` call's graphs: the images' shapes and
+    dtypes (the batch, the ground width after the ``fov`` crop), the ground
+    encoder's ``circular``, the localization branch's bin offsets (None: all
+    bins), ``return_heatmap``, and whether cuDNN and cuBLAS may use TF32 (a
+    capture keeps the kernels it was given).  ``quantize_int8`` drops every
+    graph, so the key need not tell the float model from the int8 one."""
+    return (grd.shape, grd.dtype.str, sat.shape, sat.dtype.str, circular,
+            None if offsets is None else tuple(offsets), bool(return_heatmap), tuple(tf32))
+
+
+# graph sets a replica keeps: each holds a private memory pool as large as its
+# forward's activations, and a caller picks the signature (``fov``,
+# ``ori_noise``, the batch), so the least recently used set is dropped
+MAX_GRAPH_SETS = 8
+
+
+class GraphedForward:
+    """``predict_batch``'s forward and readout at one ``graph_signature`` as
+    five CUDA graphs captured in turn into one private memory pool: the four
+    parts of ``CVM.forward`` (the first two with the images' normalisation)
+    and the readout.  Built from a call's uploaded uint8 images, which become
+    the static inputs; ``run`` copies a later call's images into them and
+    replays each part inside its span (``ops.graphs``: the operator
+    ``ccvpe::replay``), the readout inside ``predict.forward``.  The
+    readout's tensors are rewritten by the next ``run``.
+
+    The graphs read the model's weights where they lie: a change in place
+    (``copy_``, ``load_state_dict``) shows at the next call; a module or a
+    tensor put in another's place does not (``quantize_int8`` drops them)."""
+
+    def __init__(self, model: "CVMModel", grd: torch.Tensor, sat: torch.Tensor,
+                 circular: bool | None, offsets, return_heatmap: bool):
+        from .models import cvm
+        from .ops.graphs import Graph
+        from .ops.readout import pose_readout
+
+        net, impl = model.net, model.matching_impl
+        stats = imagenet_stats(model.device)
+        self.grd, self.sat = grd, sat
+        self.graphs = [Graph() for _ in range(5)]
+        ground, aerial, loc_dec, ori_dec, readout = self.graphs
+        pool = torch.cuda.graph_pool_handle()
+        with torch.cuda.device(model.device):
+            descs = ground.capture(
+                lambda: net.ground_encoder(normalize_images(grd, stats=stats), circular), pool)
+            skips, sat_desc = aerial.capture(
+                lambda: net.aerial_encoder(normalize_images(sat, stats=stats)), pool)
+            loc = loc_dec.capture(
+                lambda: net.localization_decoder(descs, skips, sat_desc, offsets, impl), pool)
+            ori = ori_dec.capture(lambda: net.orientation_decoder(loc, skips, impl), pool)
+            self.readout = readout.capture(
+                lambda: pose_readout(cvm.CVMOutputs(loc.logits, loc.heatmap, ori, loc.stacks),
+                                     want_heatmap=return_heatmap), pool)
+        # each graph's input (the operator dispatches on it); every tensor a
+        # graph reads stays held, since its replays read it where it lies
+        self.inputs = (grd, sat, sat_desc, loc.stacks[0], loc.logits)
+        self.held = (stats, descs, skips, loc, ori)
+        self.spans = (cvm.GROUND_ENCODER, cvm.AERIAL_ENCODER, cvm.LOCALIZATION_DECODER,
+                      cvm.ORIENTATION_DECODER)
+
+    def run(self, grd: np.ndarray, sat: np.ndarray) -> dict[str, torch.Tensor]:
+        with torch.inference_mode():
+            with annotate("predict.upload"):
+                self.grd.copy_(torch.from_numpy(np.ascontiguousarray(grd)))
+                self.sat.copy_(torch.from_numpy(np.ascontiguousarray(sat)))
+            with annotate("predict.forward"):
+                for span, graph, x in zip(self.spans, self.graphs, self.inputs):
+                    with annotate(span):
+                        graph.replay(x)
+                self.graphs[-1].replay(self.inputs[-1])
+        return self.readout
+
+
 def mesh_devices(mesh) -> list[torch.device]:
     """The devices of a serving mesh: ``"data"`` is every visible CUDA
     device; a list names them (one replica each, a device may repeat)."""
@@ -120,29 +200,74 @@ class CVMModel:
             self.replicas = [self]
         self.net = net
         self.device = device
+        # by graph_signature, least recently used first; at most MAX_GRAPH_SETS
+        self.graphs: collections.OrderedDict[tuple, GraphedForward] = collections.OrderedDict()
+        self._graph_lock = threading.Lock()
+
+    def _cropped(self, grd: np.ndarray, fov: float) -> tuple[np.ndarray, bool | None]:
+        """The panorama a ``fov`` reads and the ground encoder's ``circular``:
+        below 360 degrees the leading fov/360 of the panorama, encoded
+        without circular padding (its input no longer wraps)."""
+        if fov >= 360:
+            return grd, None
+        w = int(grd.shape[2] * fov / 360) if grd.shape[2] == self.cfg.grd_hw[1] else grd.shape[2]
+        return grd[:, :, :w], False
+
+    def _eager(self, grd: np.ndarray, sat: np.ndarray, offsets, circular: bool | None,
+               return_heatmap: bool):
+        """The eager forward and readout of cropped images, and the uploaded
+        uint8 images."""
+        from .ops.readout import pose_readout
+
+        with torch.inference_mode():
+            with annotate("predict.upload"):
+                g, s = self._uploaded(grd), self._uploaded(sat)
+                gn, sn = normalize_images(g), normalize_images(s)
+            with annotate("predict.forward"):
+                out = self.net(gn, sn, loc_offsets=offsets, circular=circular,
+                               matching_impl=self.matching_impl)
+                return out, pose_readout(out, want_heatmap=return_heatmap), (g, s)
 
     def forward_readout(self, grd: np.ndarray, sat: np.ndarray, *,
                         ori_noise: float = 180.0, fov: float = 360.0,
                         return_heatmap: bool = False
                         ) -> tuple[cvm.CVMOutputs, dict[str, torch.Tensor]]:
-        """The forward and the on-device readout of ``predict_batch``."""
-        from .ops.readout import pose_readout
+        """The forward and the on-device readout of ``predict_batch``, run
+        eagerly on any device: tensors the caller owns."""
+        grd, circular = self._cropped(grd, fov)
+        out, r, _ = self._eager(grd, sat, _offsets(ori_noise), circular, return_heatmap)
+        return out, r
 
-        circular = None
-        if fov < 360:
-            # limited field of view: the leading fov/360 of the panorama,
-            # encoded without circular padding (its input no longer wraps)
-            w = int(grd.shape[2] * fov / 360) if (
-                grd.shape[2] == self.cfg.grd_hw[1]) else grd.shape[2]
-            grd = grd[:, :, :w]
-            circular = False
+    def uses_graphs(self) -> bool:
+        """Whether ``predict_batch`` replays CUDA graphs: on a CUDA device
+        with the kernels; the CPU and ``matching_impl="plain"`` run eagerly."""
+        return self.device.type == "cuda" and self.matching_impl == "kernel"
+
+    def _readout(self, grd: np.ndarray, sat: np.ndarray, *, ori_noise: float, fov: float,
+                 return_heatmap: bool) -> dict[str, torch.Tensor]:
+        """This replica's readout on the device: eager, or replayed from the
+        call's graphs, which the first call of a signature runs eagerly (the
+        warm-up of cuDNN, cuBLAS, the kernel libraries and their plans) and
+        then captures."""
+        if not self.uses_graphs():
+            return self.forward_readout(grd, sat, ori_noise=ori_noise, fov=fov,
+                                        return_heatmap=return_heatmap)[1]
+        grd, circular = self._cropped(grd, fov)
+        offsets = _offsets(ori_noise)
+        tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        key = graph_signature(grd, sat, circular, offsets, return_heatmap, tf32)
+        graphed = self.graphs.get(key)
+        if graphed is not None:
+            self.graphs.move_to_end(key)
+            return graphed.run(grd, sat)
+        if len(self.graphs) >= MAX_GRAPH_SETS:
+            # dropped before the capture, whose start empties the allocator's
+            # cache, so the dropped set's pool goes back to the card first
+            self.graphs.popitem(last=False)
+        _, r, (g, s) = self._eager(grd, sat, offsets, circular, return_heatmap)
         with torch.inference_mode():
-            with annotate("predict.upload"):
-                grd, sat = self._normalized(grd), self._normalized(sat)
-            with annotate("predict.forward"):
-                out = self.net(grd, sat, loc_offsets=_offsets(ori_noise), circular=circular,
-                               matching_impl=self.matching_impl)
-                return out, pose_readout(out, want_heatmap=return_heatmap)
+            self.graphs[key] = GraphedForward(self, g, s, circular, offsets, return_heatmap)
+        return r
 
     def predict_batch(self, grd: np.ndarray, sat: np.ndarray, *,
                       ori_noise: float = 180.0, fov: float = 360.0,
@@ -150,22 +275,28 @@ class CVMModel:
         """grd [B, H, W, 3] uint8 (model-sized), sat [B, H, W, 3] uint8.
 
         ``fov < 360`` crops the panorama to its leading ``fov/360`` width
-        and turns the ground encoder's circular padding off.  Under a
-        profiler a call shows as the spans ``predict.upload`` and
-        ``predict.forward`` (one each per replica), ``predict.fetch`` (the
-        call's one wait for the device) and ``predict.poses``."""
+        and turns the ground encoder's circular padding off.  On a CUDA
+        device with the kernels the call replays the CUDA graphs of its
+        ``graph_signature`` (``GraphedForward``; the first call of a
+        signature runs eagerly and captures them; each replica keeps its
+        own, for its ``MAX_GRAPH_SETS`` most recently used signatures), and
+        calls take turns.  Under a profiler a call shows as the spans ``predict.upload`` and
+        ``predict.forward`` (one each per replica, the ``cvm.*`` parts
+        inside), ``predict.fetch`` (the call's one wait for the device) and
+        ``predict.poses``."""
         n = len(self.replicas)
         kw = dict(ori_noise=ori_noise, fov=fov, return_heatmap=return_heatmap)
-        if n > 1 and grd.shape[0] % n == 0:
-            # every replica's forward is issued before any readout is fetched
-            rs = [rep.forward_readout(g, s, **kw)[1] for rep, g, s in
-                  zip(self.replicas, np.split(grd, n), np.split(sat, n))]
-            with annotate("predict.fetch"):
-                r = {k: np.concatenate([ri[k].cpu().numpy() for ri in rs]) for k in rs[0]}
-        else:
-            _, r = self.forward_readout(grd, sat, **kw)
-            with annotate("predict.fetch"):
-                r = {k: v.cpu().numpy() for k, v in r.items()}
+        with self._graph_lock if self.uses_graphs() else contextlib.nullcontext():
+            if n > 1 and grd.shape[0] % n == 0:
+                # every replica's forward is issued before any readout is fetched
+                rs = [rep._readout(g, s, **kw) for rep, g, s in
+                      zip(self.replicas, np.split(grd, n), np.split(sat, n))]
+                with annotate("predict.fetch"):
+                    r = {k: np.concatenate([ri[k].cpu().numpy() for ri in rs]) for k in rs[0]}
+            else:
+                r = self._readout(grd, sat, **kw)
+                with annotate("predict.fetch"):
+                    r = {k: v.cpu().numpy() for k, v in r.items()}
         with annotate("predict.poses"):
             return _poses_from_readout(r, grd.shape[0], return_heatmap)
 
@@ -215,10 +346,16 @@ class CVMModel:
 
             for rep, net in zip(self.replicas[1:], replicate(self.net, self.mesh)[1:]):
                 rep.net = net
+        for rep in self.replicas:
+            # the float model's graphs read the modules the int8 ones replaced
+            rep.graphs.clear()
         return self
 
+    def _uploaded(self, images: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
+
     def _normalized(self, images: np.ndarray) -> torch.Tensor:
-        return normalize_images(torch.from_numpy(np.ascontiguousarray(images)).to(self.device))
+        return normalize_images(self._uploaded(images))
 
     def save_torch(self, path: str) -> None:
         """Write a reference-format ``.pt`` of this model's weights and BN

@@ -67,12 +67,20 @@ def load_image(path: str, size_hw: tuple[int, int] | None = None,
     return load_image_status(path, size_hw, fallback_hw)[0]
 
 
-def normalize_images(x_uint8: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+def imagenet_stats(device, dtype: torch.dtype = torch.float32
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ImageNet (mean, std) per channel, as ``dtype`` tensors on ``device``."""
+    return (torch.tensor(IMAGENET_MEAN, dtype=dtype, device=device),
+            torch.tensor(IMAGENET_STD, dtype=dtype, device=device))
+
+
+def normalize_images(x_uint8: torch.Tensor, dtype: torch.dtype = torch.float32,
+                     stats: tuple[torch.Tensor, torch.Tensor] | None = None) -> torch.Tensor:
     """uint8 [B, H, W, 3] -> ImageNet-normalised float [B, H, W, 3], on
-    the tensor's device."""
+    the tensor's device.  ``stats``: ``imagenet_stats`` made beforehand (a
+    CUDA graph's capture can copy nothing from the host); None makes them."""
     x = x_uint8.to(dtype) / 255.0
-    mean = torch.tensor(IMAGENET_MEAN, dtype=dtype, device=x.device)
-    std = torch.tensor(IMAGENET_STD, dtype=dtype, device=x.device)
+    mean, std = imagenet_stats(x.device, dtype) if stats is None else stats
     return (x - mean) / std
 
 

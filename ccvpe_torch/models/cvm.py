@@ -28,12 +28,14 @@ what the backward recomputes instead of keeping (JAX ``forward(...,
 remat=)``): the MBConv blocks of both encoders, each decoder stage, or
 both.
 
-Under a profiler the forward shows as four spans
-(``utils.profiling.annotate``): ``cvm.ground_encoder`` (the ground
-EfficientNet and the six descriptor heads), ``cvm.aerial_encoder`` (the
-aerial EfficientNet and the descriptor grid), ``cvm.localization_decoder``
-(the six matching and upsampling stages and the softmax) and
-``cvm.orientation_decoder``.
+The forward is four methods, called in turn, and under a profiler shows
+as their four spans (``utils.profiling.annotate``): ``ground_encoder``,
+span ``cvm.ground_encoder`` (the ground EfficientNet and the six descriptor
+heads); ``aerial_encoder``, ``cvm.aerial_encoder`` (the aerial EfficientNet
+and the descriptor grid); ``localization_decoder``,
+``cvm.localization_decoder`` (the six matching and upsampling stages and
+the softmax); and ``orientation_decoder``, ``cvm.orientation_decoder``.
+``api.CVMModel.predict_batch`` captures each as a CUDA graph on the card.
 
 The forward runs in the inputs' dtype: float32, or bfloat16 with every
 weight cast at its op (``nn.layers``); the matching accumulates in float32
@@ -155,6 +157,12 @@ PRESETS = {"VIGOR": VIGOR, "KITTI": KITTI, "OxfordRobotCar": OXFORD,
 
 REMAT_SCOPES = (False, True, "all", "encoder", "decoder")
 
+# the forward's four spans, one a part (``utils.profiling.annotate``)
+GROUND_ENCODER = "cvm.ground_encoder"
+AERIAL_ENCODER = "cvm.aerial_encoder"
+LOCALIZATION_DECODER = "cvm.localization_decoder"
+ORIENTATION_DECODER = "cvm.orientation_decoder"
+
 
 def remat_scopes(remat: bool | str) -> tuple[bool, bool]:
     """(encoder, decoder) checkpointed for a ``remat`` value; a misspelt
@@ -171,6 +179,25 @@ class CVMOutputs(NamedTuple):
     heatmap: torch.Tensor                       # [B, H, W, 1]
     ori: torch.Tensor                           # [B, H, W, 2] (cos, sin)
     matching_scores: tuple[torch.Tensor, ...]   # 6 x [B, h_k, w_k, bins_k]
+
+
+class LocalizationOutputs(NamedTuple):
+    """What ``CVM.localization_decoder`` gives, NHWC."""
+
+    stacks: tuple[torch.Tensor, ...]   # 6 x [B, h_k, w_k, bins_k]; the first over every bin
+    logits: torch.Tensor               # [B, H*W]
+    heatmap: torch.Tensor              # [B, H, W, 1]
+    sat_desc_norm: torch.Tensor        # the l2-normalised descriptor grid (the ori branch's)
+
+
+def _matching_fns(matching_impl: str):
+    """(scores, epilogue) of a ``matching_impl``: 'kernel' dispatches on the
+    device, 'plain' takes the plain versions anywhere."""
+    if matching_impl == "kernel":
+        return matching.matching_scores, matching.matching_epilogue
+    if matching_impl == "plain":
+        return matching.matching_scores_plain, matching.matching_epilogue_plain
+    raise ValueError(f"matching_impl must be 'kernel' or 'plain', got {matching_impl!r}")
 
 
 def _decoder_widths(cfg: CVMConfig, branch: str):
@@ -312,33 +339,51 @@ class CVM(nn.Module):
         drop-connect, as the JAX forward without ``rng``).  ``remat``:
         False, True or 'all' (both encoders' MBConv blocks and every decoder
         stage), 'encoder' or 'decoder'.
+
+        The four parts, each its own method and span, run in turn
+        (``api.CVMModel.predict_batch`` replays each as a CUDA graph).
         """
-        cfg = self.cfg
         remat_enc, remat_dec = remat_scopes(remat)
-        if matching_impl == "kernel":
-            scores_fn, epilogue_fn = matching.matching_scores, matching.matching_epilogue
-        elif matching_impl == "plain":
-            scores_fn = matching.matching_scores_plain
-            epilogue_fn = matching.matching_epilogue_plain
-        else:
-            raise ValueError(f"matching_impl must be 'kernel' or 'plain', got {matching_impl!r}")
+        _matching_fns(matching_impl)
+        descs = self.ground_encoder(grd, circular, generator, remat_enc)
+        skips, sat_desc = self.aerial_encoder(sat, generator, remat_enc)
+        loc = self.localization_decoder(descs, skips, sat_desc, loc_offsets, matching_impl,
+                                        remat_dec)
+        ori = self.orientation_decoder(loc, skips, matching_impl, remat_dec)
+        return CVMOutputs(loc.logits, loc.heatmap, ori, loc.stacks)
+
+    def ground_encoder(self, grd: torch.Tensor, circular: bool | None = None,
+                       generator: torch.Generator | None = None,
+                       remat: bool = False) -> list[torch.Tensor]:
+        """Span ``cvm.ground_encoder``: NHWC ground images -> the six
+        descriptors [B, W * C_k]."""
+        with annotate(GROUND_ENCODER):
+            grd = _nchw(grd).contiguous(memory_format=torch.channels_last)
+            grd_feat, _ = self.grd_efficientnet(grd, circular, generator, remat)
+            return [self._grd_descriptor(k, grd_feat) for k in range(N_SCALES)]
+
+    def aerial_encoder(self, sat: torch.Tensor, generator: torch.Generator | None = None,
+                       remat: bool = False) -> tuple[list[torch.Tensor], torch.Tensor]:
+        """Span ``cvm.aerial_encoder``: NHWC aerial images -> the five skip
+        maps (NCHW, channels_last) and the descriptor grid (NHWC)."""
+        with annotate(AERIAL_ENCODER):
+            sat = _nchw(sat).contiguous(memory_format=torch.channels_last)
+            sat_feat, ms = self.sat_efficientnet(sat, generator=generator, remat=remat)
+            return [ms[i] for i in self.cfg.skip_blocks], self._sat_descriptor_grid(sat_feat)
+
+    def localization_decoder(self, descs: list[torch.Tensor], skips: list[torch.Tensor],
+                             sat_desc: torch.Tensor, loc_offsets=None,
+                             matching_impl: str = "kernel",
+                             remat: bool = False) -> LocalizationOutputs:
+        """Span ``cvm.localization_decoder``: the six matching and upsampling
+        stages and the softmax."""
+        cfg = self.cfg
+        scores_fn, epilogue_fn = _matching_fns(matching_impl)
         full_bins = tuple(range(cfg.bins))
         loc_bins = full_bins if loc_offsets is None else tuple(int(o) for o in loc_offsets)
-
-        cl = torch.channels_last
-        with annotate("cvm.ground_encoder"):
-            grd = _nchw(grd).contiguous(memory_format=cl)
-            grd_feat, _ = self.grd_efficientnet(grd, circular, generator, remat_enc)
-            descs = [self._grd_descriptor(k, grd_feat) for k in range(N_SCALES)]
-        with annotate("cvm.aerial_encoder"):
-            sat = _nchw(sat).contiguous(memory_format=cl)
-            sat_feat, ms = self.sat_efficientnet(sat, generator=generator, remat=remat_enc)
-            skips = [ms[i] for i in cfg.skip_blocks]
-            sat_desc = self._sat_descriptor_grid(sat_feat)    # NHWC, contiguous
-
         stacks = []
         x = sat_desc
-        with annotate("cvm.localization_decoder"):
+        with annotate(LOCALIZATION_DECODER):
             for s in range(N_SCALES):
                 g = descs[s]
                 if g.shape[-1] == x.shape[-1]:
@@ -354,17 +399,22 @@ class CVM(nn.Module):
                 stacks.append(stack)
                 skip = skips[s] if s < 5 else None
                 args = (s, smax, xnorm, skip, matching_impl)
-                y = checkpoint(self._loc_stage, *args) if remat_dec else self._loc_stage(*args)
+                y = checkpoint(self._loc_stage, *args) if remat else self._loc_stage(*args)
                 x = _nhwc(y)
 
             b = x.shape[0]
             logits = x.reshape(b, -1)
             heatmap = F.softmax(logits, dim=-1).reshape(x.shape)
+        return LocalizationOutputs(tuple(stacks), logits, heatmap, sat_desc_norm)
 
-        with annotate("cvm.orientation_decoder"):
-            y = _nchw(torch.cat([stacks[0], sat_desc_norm], dim=-1))
+    def orientation_decoder(self, loc: LocalizationOutputs, skips: list[torch.Tensor],
+                            matching_impl: str = "kernel",
+                            remat: bool = False) -> torch.Tensor:
+        """Span ``cvm.orientation_decoder``: the full-bin first stack and the
+        normalised descriptor grid -> the (cos, sin) field [B, H, W, 2]."""
+        with annotate(ORIENTATION_DECODER):
+            y = _nchw(torch.cat([loc.stacks[0], loc.sat_desc_norm], dim=-1))
             for s in range(N_SCALES):
                 args = ("_ori", s, y, skips[s] if s < 5 else None, matching_impl)
-                y = checkpoint(self._stage, *args) if remat_dec else self._stage(*args)
-            ori = _nhwc(l2_normalize(y, dim=1))
-        return CVMOutputs(logits, heatmap, ori, tuple(stacks))
+                y = checkpoint(self._stage, *args) if remat else self._stage(*args)
+            return _nhwc(l2_normalize(y, dim=1))

@@ -49,6 +49,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from ..ops import graphs
 from ..parallel.mesh import all_reduce_sum, is_distributed, rank, world_size
 
 Pad2d = tuple[tuple[int, int], tuple[int, int]]
@@ -185,8 +186,7 @@ def int8_counts() -> dict:
 
 
 def _count_int8(route: str) -> None:
-    with _INT8_LOCK:
-        INT8_COUNTS[route] += 1
+    graphs.count(INT8_COUNTS, _INT8_LOCK, route)
 
 
 def _round_up(n: int, m: int) -> int:

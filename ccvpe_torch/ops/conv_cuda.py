@@ -25,7 +25,8 @@ anything else; it never falls back to the library.  A CPU tensor takes
 layout (one copy: no cache can miss a write through ``.data`` or into an
 FSDP buffer).  The launch runs inside the operator ``ccvpe::conv3x3``, so a
 profiler attaches the kernels to it and to the spans around it.
-``LAUNCH_COUNTS`` counts the convolutions launched, by plan.
+``LAUNCH_COUNTS`` counts the convolutions launched, by plan, a CUDA graph's
+at each replay (``ops.graphs.count``).
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from ..nn.layers import Conv2d
-from . import _build
+from . import _build, graphs
 from .matching_cuda import H100, DeviceLimits, device_limits
 
 
@@ -92,8 +93,7 @@ def launch_counts() -> dict[str, int]:
 
 
 def _count(plan: str) -> None:
-    with _COUNT_LOCK:
-        LAUNCH_COUNTS[plan] += 1
+    graphs.count(LAUNCH_COUNTS, _COUNT_LOCK, plan)
 
 
 def n_waste(cout: int, bn: int) -> float:

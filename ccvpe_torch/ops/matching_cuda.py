@@ -48,7 +48,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils.profiling import annotate
-from . import _build
+from . import _build, graphs
 from .matching import bin_shifts, matching_epilogue_plain, matching_scores_plain
 
 # kernel launches on the CUDA path, by (kernel, layout, dtype); reset with
@@ -157,9 +157,9 @@ def launch_counts(*by: str) -> dict:
 
 
 def _count(kernel: str, layout: str, dtype: torch.dtype) -> None:
-    """One launch of ``kernel`` in ``layout`` on ``dtype`` inputs."""
-    with _COUNT_LOCK:
-        LAUNCH_COUNTS[kernel, layout, str(dtype).removeprefix("torch.")] += 1
+    """One launch of ``kernel`` in ``layout`` on ``dtype`` inputs (a CUDA
+    graph's at each replay, ``ops.graphs.count``)."""
+    graphs.count(LAUNCH_COUNTS, _COUNT_LOCK, (kernel, layout, str(dtype).removeprefix("torch.")))
 
 
 @functools.cache

@@ -453,6 +453,38 @@ def _summary(name, rows, replaces, dev: dict) -> dict:
             "layouts": [r["layout"] for r in rows]}
 
 
+def _replay_check(tag: str, fn, launches, replays: int = 3) -> dict:
+    """``fn`` captured as a CUDA graph (``ops.graphs.Graph``, as
+    ``predict_batch`` captures its parts) and replayed: every output equal
+    to the eager call's bit for bit, and ``launches()`` (a launch counter)
+    grown by the eager call's launches at each replay and not at the
+    capture."""
+    from ccvpe_torch.ops.graphs import Graph
+
+    with torch.inference_mode():
+        before = launches()
+        want = fn()
+        torch.cuda.synchronize()
+        per_call = launches() - before
+        graph = Graph()
+        got = graph.capture(fn, torch.cuda.graph_pool_handle())
+        captured = launches() - before - per_call
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        for t in got:
+            t.zero_()
+        for _ in range(replays):
+            graph.replay(got[0])
+        torch.cuda.synchronize()
+        counted = launches() - before - per_call
+    if captured or counted != replays * per_call or not per_call:
+        raise AssertionError(f"{tag}: {per_call} launches a call, {captured} counted at the "
+                             f"capture, {counted} over {replays} replays")
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{tag}: a replay differs from the eager call")
+    return {"check": tag, "launches_per_call": per_call, "replays": replays,
+            "launches_counted": counted}
+
+
 def phase_kernels(dev: dict) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -513,9 +545,21 @@ def phase_kernels(dev: dict) -> dict:
             run("K1", 3, (66, 66), 80, 80, 4, offsets, "first", dtype, 16)
             run("K2", 3, (41, 41), 40, 20, 2, offsets, "first", dtype, 15)
             run("K2", 3, (66, 66), 80, 40, 4, offsets, "first", dtype, 16)
+    # both kernels replayed from a CUDA graph, as predict_batch runs them:
+    # K1 at the finest VIGOR scale (tile), K2 with fov=180's masked window
+    # at 32x32x320 (tile)
+    x, g = _inputs(BATCH, (256, 256), 40, 40, 3, torch.float32)
+    xs, gs = _inputs(BATCH, (32, 32), 320, 160, 4, torch.float32)
+    graph_replays = [
+        _replay_check("K1 tile 256x256x40", lambda: MC.launch_matching_epilogue(
+            x, g, 2, tuple(range(20)), "first"), lambda: sum(MC.launch_counts().values())),
+        _replay_check("K2 tile 32x32x320 masked", lambda: MC.launch_matching_scores(
+            xs, gs, 16, tuple(range(20)), "first"), lambda: sum(MC.launch_counts().values()))]
+    del x, g, xs, gs
     emit({"phase": "kernel_checks", "n": len(checks),
           "tolerance": {"float32": F32_TOL, "bfloat16": BF16_TOL},
-          "max_abs_err": {f"{k} {str(d)[6:]}": v for (k, d), v in max_err.items()}})
+          "max_abs_err": {f"{k} {str(d)[6:]}": v for (k, d), v in max_err.items()},
+          "graph_replays": graph_replays})
 
     # times at the main path's shapes: float32, batch 8, 20 bins
     shapes = []
@@ -563,7 +607,8 @@ def phase_kernels(dev: dict) -> dict:
     # K2 in two rows: its one launch per ori-prior forward (the full-bin
     # bottleneck stack) and its six per fov=180 forward (masked windows), so
     # that each row's ms and launches describe the same work
-    return {"checks": checks, "shapes": shapes, "bf16_shapes": bf16, "bf16_summary": bf16_rows,
+    return {"checks": checks, "graph_replays": graph_replays, "shapes": shapes,
+            "bf16_shapes": bf16, "bf16_summary": bf16_rows,
             "summary": [summary("matching_epilogue (K1)", k1, "K1", K1_REPLACES),
                         summary("matching_scores (K2), ori-prior bottleneck", k2, "K2",
                                 K2_REPLACES),
@@ -698,6 +743,15 @@ def phase_conv(dev: dict) -> dict:
                          tflops=total["flops"] / total["ms"] / 1e9,
                          pct_of_bound=100 * total["bound_ms"] / total["ms"])
         info["presets"][preset] = entry
+    # the split-K and the direct kernel replayed from a CUDA graph, as
+    # predict_batch runs them
+    info["graph_replays"] = []
+    for shape, relu in (((BATCH, 16, 16, 1344, 640), True), ((BATCH, 512, 512, 16, 2), False)):
+        x, wt, bias = _conv_inputs(*shape, seed=5)
+        info["graph_replays"].append(_replay_check(
+            f"conv3x3 {list(shape)} {CC.choose_plan(*shape[:5]).plan}",
+            lambda: CC.conv3x3(x, wt, bias, relu), _conv_launches))
+        del x, wt, bias
     torch.cuda.empty_cache()
     emit({**info, "presets": {k: {m: v for m, v in e.items() if m != "rows"}
                               for k, e in info["presets"].items()}})
@@ -730,11 +784,15 @@ def phase_model(dev: dict) -> dict:
     k2_fov_layouts = {("matching_scores", "tile"): 4, ("matching_scores", "warp"): 2}
 
     # the main path, one setting at a time, with every launch counter at 0
-    # just before it and read just after
+    # just before it and read just after: a call on other images first
+    # (eager; it captures the setting's CUDA graphs), then the counted call,
+    # which replays them
     poses, steps, layout_steps = [], [], []
     launches = dict.fromkeys(MC.launch_counts(), 0)
     conv_steps = []
+    warm_grd, warm_sat = _images(model.cfg, BATCH, seed=12)
     for kw, _ in settings:
+        model.predict_batch(warm_grd, warm_sat, return_heatmap=True, **kw)
         MC.reset_launch_counts()
         conv0 = _conv_launches()
         poses.append(model.predict_batch(grd, sat, return_heatmap=True, **kw))
@@ -749,6 +807,9 @@ def phase_model(dev: dict) -> dict:
                              f"want {[w for _, w in settings]}")
     if conv_steps != [24] * len(settings):
         raise AssertionError(f"decoder conv launches per setting {conv_steps}, want 24 each")
+    if not model.uses_graphs() or len(model.graphs) != len(settings):
+        raise AssertionError(f"predict_batch holds {len(model.graphs)} graph signatures, want "
+                             f"one a setting ({len(settings)})")
     for (kw, _), got in zip(settings, layout_steps):
         k1 = {k: n for k, n in got.items() if k[0] == "matching_epilogue"}
         if "fov" not in kw and k1 != k1_layouts:
@@ -780,7 +841,8 @@ def phase_model(dev: dict) -> dict:
                         "max_abs_err": errs, "heading_err_deg": heading,
                         "logit_spread_min": spread})
     info = {"phase": "model", "preset": "VIGOR", "batch": BATCH, "dtype": "float32",
-            "setup_seconds": setup_s, "launches": launches,
+            "setup_seconds": setup_s, "graph_signatures": len(model.graphs),
+            "launches": launches,
             "conv_launches_per_setting": conv_steps,
             "launches_per_setting": dict(zip(map(json.dumps, (kw for kw, _ in settings)), steps)),
             "launches_by_layout_per_setting": {
@@ -849,8 +911,11 @@ def phase_model_presets(dev: dict) -> dict:
         scales = preset_scales(model.cfg)
         n_k1 = sum(cg == cs for _, cs, cg, _ in scales)
         results = []
+        warm_grd, warm_sat = _images(model.cfg, BATCH, seed=12)
         for kw in settings:
             prior = kw["ori_noise"] < 180
+            # the first call captures the setting's graphs; the counted one replays
+            model.predict_batch(warm_grd, warm_sat, return_heatmap=True, **kw)
             MC.reset_launch_counts()
             conv0 = _conv_launches()
             poses = model.predict_batch(grd, sat, return_heatmap=True, **kw)
@@ -880,10 +945,14 @@ def phase_model_presets(dev: dict) -> dict:
                             "rows": [p.row for p in poses], "cols": [p.col for p in poses],
                             "max_abs_err": errs, "heading_err_deg": heading,
                             "logit_spread_min": out.logits_flattened.std(dim=1).min().item()})
+        if len(model.graphs) != len(settings):
+            raise AssertionError(f"{preset}: {len(model.graphs)} graph signatures, want "
+                                 f"{len(settings)}")
         times = [_time_matching("K1" if cg == cs else "K2", BATCH, (side, side), cs, cg, shift,
                                 range(model.cfg.bins), model.cfg.window, dev, 60 + i)
                  for i, (side, cs, cg, shift) in enumerate(scales)]
-        info["presets"][preset] = {"results": results, "times": times}
+        info["presets"][preset] = {"results": results, "times": times,
+                                   "graph_signatures": len(model.graphs)}
         del model, plain
         gc.collect()
         torch.cuda.empty_cache()
@@ -2381,12 +2450,12 @@ def _mesh_serving(model: api.CVMModel, tmp: str) -> dict:
     if worst["heatmap"] > MODEL_TOL["heatmap"] or worst["heading"] > HEADING_TOL_DEG:
         raise AssertionError(f"mesh predict_batch: {worst}")
     second = meshed.replicas[1]
-    second.forward_readout = lambda *a, **k: (_ for _ in ()).throw(
+    second._readout = lambda *a, **k: (_ for _ in ()).throw(
         AssertionError("a batch of one reached the second replica"))
     try:
         one = meshed.predict(grd[0], sat[0])
     finally:
-        del second.forward_readout
+        del second._readout
     ref = model.predict(grd[0], sat[0])
     if (one.row, one.col, one.probability) != (ref.row, ref.col, ref.probability):
         raise AssertionError(f"mesh batch of one {one} vs {ref}")
@@ -2517,15 +2586,22 @@ def phase_timing(dev: dict, model: api.CVMModel, out: Path | None) -> dict:
             model.predict_batch(grd, sat)
         torch.cuda.synchronize()
         n = 10
+        before = _conv_launches(), MC.launch_counts()
         t0 = time.perf_counter()
         for _ in range(n):
             model.predict_batch(grd, sat)
         dt = time.perf_counter() - t0
+        after = _conv_launches(), MC.launch_counts()
+        per_call = {"conv3x3": (after[0] - before[0]) / n,
+                    **{k: (v - before[1][k]) / n for k, v in after[1].items()}}
+        if per_call != {"conv3x3": 24, "matching_epilogue": 6, "matching_scores": 0}:
+            raise AssertionError(f"{label}: launches a replayed call {per_call}")
         fwd = time_ms(lambda: model.forward_readout(grd, sat), reps=10, warmup=1)
         smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
                               "--format=csv,noheader"], capture_output=True, text=True,
                              timeout=60).stdout.strip()
         res[label] = {"pairs_per_s": BATCH * n / dt, "predict_batch_ms": dt / n * 1e3,
+                      "graphed": model.uses_graphs(), "launches_per_call": per_call,
                       "forward_readout_ms": fwd, "after": smi}
     torch.backends.cudnn.allow_tf32 = False
     res["profile"] = _profile(model, grd, sat, out)
@@ -2860,12 +2936,14 @@ def _pairs_per_s(model: api.CVMModel, grd, sat, n: int = 10) -> float:
 
 
 def _quant_profile(qmodel: api.CVMModel, grd, sat, out: Path | None) -> dict:
-    """Device ms of one ``predict_batch`` by part, over three profiled
-    calls: the int8 products (``aten::_int_mm``), the int8 conv's other
-    passes (quantize, pad, im2col, dequantize, bias: the rest of the
-    ``INT8_RANGE`` around each ``QuantConv2d`` call, a range this profile
-    alone puts there), K1 and K2, and everything else.  ``out`` None: the
-    float32 model (no int8 parts), no table written."""
+    """Device ms of one call's forward and readout by part, over three
+    profiled eager calls (``forward_readout``: a ``predict_batch`` replays
+    the same kernels from CUDA graphs, all under ``ccvpe::replay``, where no
+    op or range names a part): the int8 products (``aten::_int_mm``), the
+    int8 conv's other passes (quantize, pad, im2col, dequantize, bias: the
+    rest of the ``INT8_RANGE`` around each ``QuantConv2d`` call, a range
+    this profile alone puts there), K1 and K2, and everything else.  ``out``
+    None: the float32 model (no int8 parts), no table written."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     forward = TL.QuantConv2d.forward
@@ -2876,11 +2954,11 @@ def _quant_profile(qmodel: api.CVMModel, grd, sat, out: Path | None) -> dict:
 
     TL.QuantConv2d.forward = ranged
     try:
-        qmodel.predict_batch(grd, sat)
+        qmodel.forward_readout(grd, sat)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(3):
-                qmodel.predict_batch(grd, sat)
+                qmodel.forward_readout(grd, sat)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) / 3 * 1e3
     finally:
@@ -2915,7 +2993,9 @@ def _quant_profile(qmodel: api.CVMModel, grd, sat, out: Path | None) -> dict:
     int8 = any(isinstance(m, TL.QuantConv2d) for m in qmodel.net.modules())
     if not ((parts["int8_products"] > 0) == int8 and parts["matching_K1_K2"] > 0):
         raise AssertionError(f"the int8 profile shows no int8 products or no K1/K2: {parts}")
-    return {"device_ms_per_call": {**parts, "total": sum(parts.values())},
+    return {"path": "eager forward_readout: the kernels predict_batch replays, without "
+                    "the graphs' launch gaps and idle",
+            "device_ms_per_call": {**parts, "total": sum(parts.values())},
             "busy_ms_per_call": busy_ms / 3, "wall_ms_per_call_profiled": wall_ms}
 
 
