@@ -69,6 +69,21 @@
 // from shared memory, and writes Cout floats.  (Four pixels a thread, each
 // weight read feeding four FFMAs, measured 1.6-2.1x slower on the H100:
 // the threads' float4 reads then lie four pixels apart.)
+//
+// The backward of a training step (ops/conv_cuda.py's autograd Function):
+//   * dgrad, dx = conv3x3(g, w') with w'[c][o][ky][kx] = w[o][c][2-ky][2-kx]
+//     (stride 1, padding 1), no bias, no ReLU: conv3x3_gemm_kernel itself,
+//     the wrapper packing w' as it packs w;
+//   * wgrad, conv3x3_wgrad_kernel: a GEMM of M = 9*Cin + 1 rows (the nine
+//     taps' input channels and a row of ones, whose sums are the bias
+//     gradient), N = Cout, K = B*H*W pixels, on the forward's ring and
+//     k-major tiles (the same six tile shapes, chosen by Cout), A the
+//     forward's implicit gather of x's halo, B the rows of g.  K is split
+//     over pixel ranges (gridDim.z) into a float32 workspace until the
+//     tiles fill the card's resident slots (hundreds of splits at 512x512,
+//     where M x N is one tile), and conv3x3_wgrad_reduce sums the splits in
+//     a fixed order into the weight's channels_last layout [Cout][ky][kx][Cin]
+//     and the bias, so a step's gradients are the same bits run to run.
 
 #include <cuda_runtime.h>
 
@@ -156,6 +171,79 @@ __device__ __forceinline__ int tap_mask(int y, int x, int h, int w) {
   return mask;
 }
 
+// One slab's FFMAs into a thread's TM x TN tile: columns (tn + h*NT)*4 + j;
+// rows tm + i*MT (AM) or (tm + h*MT)*4 + j.
+template <class P>
+__device__ __forceinline__ void fma_slab(const float* As, const float* Bs,
+                                         float (&acc)[P::TM][P::TN], int tm, int tn) {
+  if constexpr (P::AM) {
+#pragma unroll
+    for (int kq = 0; kq < P::BK / 4; ++kq) {
+      alignas(16) float av[P::TM][4];
+#pragma unroll
+      for (int r = 0; r < P::TM; ++r)
+        *reinterpret_cast<float4*>(av[r]) =
+            *reinterpret_cast<const float4*>(As + (tm + r * P::MT) * P::SA + kq * 4);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        alignas(16) float bv[P::TN];
+#pragma unroll
+        for (int h = 0; h < P::TN / 4; ++h)
+          *reinterpret_cast<float4*>(bv + 4 * h) = *reinterpret_cast<const float4*>(
+              Bs + (kq * 4 + q) * P::BN + (tn + h * P::NT) * 4);
+#pragma unroll
+        for (int r = 0; r < P::TM; ++r)
+#pragma unroll
+          for (int j = 0; j < P::TN; ++j) acc[r][j] = fmaf(av[r][q], bv[j], acc[r][j]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < P::BK; ++q) {
+      alignas(16) float av[P::TM], bv[P::TN];
+#pragma unroll
+      for (int h = 0; h < P::TM / 4; ++h)
+        *reinterpret_cast<float4*>(av + 4 * h) =
+            *reinterpret_cast<const float4*>(As + q * P::SA + (tm + h * P::MT) * 4);
+#pragma unroll
+      for (int h = 0; h < P::TN / 4; ++h)
+        *reinterpret_cast<float4*>(bv + 4 * h) =
+            *reinterpret_cast<const float4*>(Bs + q * P::BN + (tn + h * P::NT) * 4);
+#pragma unroll
+      for (int r = 0; r < P::TM; ++r)
+#pragma unroll
+        for (int j = 0; j < P::TN; ++j) acc[r][j] = fmaf(av[r], bv[j], acc[r][j]);
+    }
+  }
+}
+
+// A block's GEMM over its nslabs K slabs, through the ring of STAGES stages:
+// copy_slab(s, stage) issues the copies of slab s (called once a slab, in
+// increasing s), the copies of slab s+2 in flight while slab s is computed.
+template <class P, class Copy>
+__device__ __forceinline__ void gemm_slabs(float* smem, int nslabs, Copy&& copy_slab,
+                                           float (&acc)[P::TM][P::TN], int tm, int tn) {
+#pragma unroll
+  for (int i = 0; i < P::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < P::TN; ++j) acc[i][j] = 0.f;
+#pragma unroll
+  for (int s = 0; s < P::STAGES - 1; ++s) {
+    if (s < nslabs) copy_slab(s, s);
+    cp_async_commit();
+  }
+  for (int i = 0; i < nslabs; ++i) {
+    cp_async_wait<P::STAGES - 2>();  // this thread's copies of slab i have landed
+    __syncthreads();                 // everyone's have, and slab i-1's stage is free
+    const int next = i + P::STAGES - 1;
+    if (next < nslabs) copy_slab(next, next % P::STAGES);
+    cp_async_commit();
+    const float* As = smem + (i % P::STAGES) * P::STAGE;
+    fma_slab<P>(As, As + P::A_STAGE, acc, tm, tn);
+  }
+  cp_async_wait<0>();
+}
+
 template <class P>
 __global__ void __launch_bounds__(P::THREADS, P::MIN_BLOCKS) conv3x3_gemm_kernel(ConvArgs a) {
   float* smem = dynamic_smem<float>();
@@ -214,65 +302,7 @@ __global__ void __launch_bounds__(P::THREADS, P::MIN_BLOCKS) conv3x3_gemm_kernel
   const int tm = (warp / (P::NT / P::WN)) * P::WM + lane / P::WN;
 
   float acc[P::TM][P::TN];
-#pragma unroll
-  for (int i = 0; i < P::TM; ++i)
-#pragma unroll
-    for (int j = 0; j < P::TN; ++j) acc[i][j] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < P::STAGES - 1; ++s) {
-    if (s < nslabs) copy_slab(s, s);
-    cp_async_commit();
-  }
-  for (int i = 0; i < nslabs; ++i) {
-    cp_async_wait<P::STAGES - 2>();  // this thread's copies of slab i have landed
-    __syncthreads();                 // everyone's have, and slab i-1's stage is free
-    const int next = i + P::STAGES - 1;
-    if (next < nslabs) copy_slab(next, next % P::STAGES);
-    cp_async_commit();
-    const float* As = smem + (i % P::STAGES) * P::STAGE;
-    const float* Bs = As + P::A_STAGE;
-    if constexpr (P::AM) {
-#pragma unroll
-      for (int kq = 0; kq < P::BK / 4; ++kq) {
-        alignas(16) float av[P::TM][4];
-#pragma unroll
-        for (int r = 0; r < P::TM; ++r)
-          *reinterpret_cast<float4*>(av[r]) =
-              *reinterpret_cast<const float4*>(As + (tm + r * P::MT) * P::SA + kq * 4);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          alignas(16) float bv[P::TN];
-#pragma unroll
-          for (int h = 0; h < P::TN / 4; ++h)
-            *reinterpret_cast<float4*>(bv + 4 * h) = *reinterpret_cast<const float4*>(
-                Bs + (kq * 4 + q) * P::BN + (tn + h * P::NT) * 4);
-#pragma unroll
-          for (int r = 0; r < P::TM; ++r)
-#pragma unroll
-            for (int j = 0; j < P::TN; ++j) acc[r][j] = fmaf(av[r][q], bv[j], acc[r][j]);
-        }
-      }
-      continue;
-    }
-#pragma unroll
-    for (int q = 0; q < P::BK; ++q) {
-      alignas(16) float av[P::TM], bv[P::TN];
-#pragma unroll
-      for (int h = 0; h < P::TM / 4; ++h)
-        *reinterpret_cast<float4*>(av + 4 * h) =
-            *reinterpret_cast<const float4*>(As + q * P::SA + (tm + h * P::MT) * 4);
-#pragma unroll
-      for (int h = 0; h < P::TN / 4; ++h)
-        *reinterpret_cast<float4*>(bv + 4 * h) =
-            *reinterpret_cast<const float4*>(Bs + q * P::BN + (tn + h * P::NT) * 4);
-#pragma unroll
-      for (int r = 0; r < P::TM; ++r)
-#pragma unroll
-        for (int j = 0; j < P::TN; ++j) acc[r][j] = fmaf(av[r], bv[j], acc[r][j]);
-    }
-  }
-  cp_async_wait<0>();
+  gemm_slabs<P>(smem, nslabs, copy_slab, acc, tm, tn);
 
   // epilogue: a split of K leaves raw sums in its slice of the workspace
   const bool split = gridDim.z > 1;
@@ -361,6 +391,167 @@ __global__ void __launch_bounds__(256) conv3x3_direct_kernel(ConvArgs a) {
   }
 }
 
+struct WgradArgs {
+  const float* x;  // [m][cin]
+  const float* g;  // [m][cout]: the gradient of the conv's output (after the ReLU's mask)
+  float* ws;       // [splits][cout][ldw]
+  int h, w, cin, cout;
+  int m;           // batch*h*w
+  int rows;        // 9*cin + 1: the taps' rows and the bias row
+  int ldw;         // rows rounded up to 4
+  int slabs;       // K slabs (of BK pixels) of each split
+};
+
+// The weight gradient as a GEMM: C[k][n] = sum over pixels p of A[k][p] B[p][n],
+// k = tap * cin + c (tap = ky * 3 + kx) for k < 9*cin, A the input pixel
+// under tap of p (zero outside the image), and A = 1 in row 9*cin, so that
+// its C row is the bias gradient; B = g.  Tiles and ring are the forward's
+// k-major ones: a slab is BK pixels.  Each thread copies the A granules of
+// one pixel row of the slab (whose image position it steps along) and B in
+// 16-byte granules along n.  Split z writes its tile's raw sums transposed
+// into ws[z][n][k], in the layout of a channels_last weight
+// ([cout][ky][kx][cin]) with the bias row after the taps.
+template <class P>
+__global__ void __launch_bounds__(P::THREADS, P::MIN_BLOCKS) conv3x3_wgrad_kernel(WgradArgs a) {
+  static_assert(!P::AM && P::THREADS % P::BK == 0, "wgrad tiles are k-major");
+  constexpr int GROUPS = P::THREADS / P::BK;                     // A granule columns of a pass
+  constexpr int A_G = (P::BM / 4 + GROUPS - 1) / GROUPS;         // A granules of a thread a slab
+  constexpr int B_COLS = P::BN / 4, B_G = P::BK * B_COLS;       // B granules of a slab
+  float* smem = dynamic_smem<float>();
+  const int t = threadIdx.x;
+  const int ntn = (a.cout + P::BN - 1) / P::BN;
+  const int m0 = (blockIdx.x / ntn) * P::BM, n0 = (blockIdx.x % ntn) * P::BN;
+  const int slab0 = blockIdx.z * a.slabs;
+  const int nslabs = min(a.slabs, (a.m + P::BK - 1) / P::BK - slab0);
+  const int k9 = 9 * a.cin;
+  const bool avec = a.cin % 4 == 0, bvec = a.cout % 4 == 0;
+
+  // this thread's A granules: pixel row r of the slab, columns c0 + i*GROUPS;
+  // kind 0-8 a tap (offset aoff from the pixel's own row), 9 the bias
+  // row's granule, 10 zeros, -1 no granule
+  const int r = t % P::BK, c0 = t / P::BK;
+  int kind[A_G], aoff[A_G];
+#pragma unroll
+  for (int i = 0; i < A_G; ++i) {
+    const int c4 = c0 + i * GROUPS, k = m0 + 4 * c4;
+    const int tap = k < k9 ? k / a.cin : 0;
+    kind[i] = c4 >= P::BM / 4 ? -1 : k < k9 ? tap : k == k9 ? 9 : 10;
+    aoff[i] = ((tap / 3 - 1) * a.w + tap % 3 - 1) * a.cin + (k - tap * a.cin);
+  }
+  // the pixel of row r in the next slab to copy, and its image position
+  int p = slab0 * P::BK + r;
+  int py = (p % (a.h * a.w)) / a.w, px = p % a.w;
+
+  auto copy_slab = [&](int /*slab*/, int stage) {
+    float* As = smem + stage * P::STAGE;
+    float* Bs = As + P::A_STAGE;
+    const bool vp = p < a.m;
+    const int mask = vp ? tap_mask(py, px, a.h, a.w) : 0;
+#pragma unroll
+    for (int i = 0; i < A_G; ++i) {
+      if (kind[i] < 0) continue;
+      float* dst = As + r * P::SA + 4 * (c0 + i * GROUPS);
+      if (avec) {
+        if (kind[i] < 9) {
+          const bool ok = (mask >> kind[i]) & 1;
+          cp_async16z(dst, ok ? a.x + p * a.cin + aoff[i] : a.x, ok);
+        } else {
+          const float one = kind[i] == 9 && vp ? 1.f : 0.f;
+          *reinterpret_cast<float4*>(dst) = make_float4(one, 0.f, 0.f, 0.f);
+        }
+        continue;
+      }
+      // cin not a multiple of 4: a granule may straddle taps
+      const int k0 = m0 + 4 * (c0 + i * GROUPS);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = k0 + j;
+        if (k < k9) {
+          const int tap = k / a.cin, c = k - tap * a.cin;
+          const bool ok = (mask >> tap) & 1;
+          cp_async4(dst + j, ok ? a.x + (p + (tap / 3 - 1) * a.w + tap % 3 - 1) * a.cin + c : a.x,
+                    ok);
+        } else {
+          dst[j] = k == k9 && vp ? 1.f : 0.f;
+        }
+      }
+    }
+    // B: g's rows of the slab's pixels, lanes along n
+    const int q0 = p - r;
+    for (int gi = t; gi < B_G; gi += P::THREADS) {
+      const int row = gi / B_COLS, gc = (gi % B_COLS) * 4, q = q0 + row, n = n0 + gc;
+      float* dst = Bs + row * P::BN + gc;
+      if (bvec) {
+        const bool ok = q < a.m && n < a.cout;
+        cp_async16z(dst, ok ? a.g + q * a.cout + n : a.g, ok);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const bool ok = q < a.m && n + j < a.cout;
+          cp_async4(dst + j, ok ? a.g + q * a.cout + n + j : a.g, ok);
+        }
+      }
+    }
+    p += P::BK;
+    px += P::BK;
+    while (px >= a.w) {
+      px -= a.w;
+      if (++py == a.h) py = 0;
+    }
+  };
+
+  const int warp = t / 32, lane = t % 32;
+  const int tn = (warp % (P::NT / P::WN)) * P::WN + lane % P::WN;
+  const int tm = (warp / (P::NT / P::WN)) * P::WM + lane / P::WN;
+  float acc[P::TM][P::TN];
+  gemm_slabs<P>(smem, nslabs, copy_slab, acc, tm, tn);
+
+  // rows (tm + h*MT)*4 + {0..3} of column n: one float4 of ws[z][n]
+  float* out = a.ws + static_cast<size_t>(blockIdx.z) * a.cout * a.ldw;
+#pragma unroll
+  for (int h2 = 0; h2 < P::TN / 4; ++h2)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + (tn + h2 * P::NT) * 4 + j;
+      if (n >= a.cout) continue;
+#pragma unroll
+      for (int h = 0; h < P::TM / 4; ++h) {
+        const int k = m0 + (tm + h * P::MT) * 4;
+        if (k >= a.rows) continue;
+        const int c = h2 * 4 + j;
+        *reinterpret_cast<float4*>(out + static_cast<size_t>(n) * a.ldw + k) = make_float4(
+            acc[h * 4][c], acc[h * 4 + 1][c], acc[h * 4 + 2][c], acc[h * 4 + 3][c]);
+      }
+    }
+}
+
+// dw[n][k] (k < 9*cin) and db[n] (k = 9*cin) = the sum over the splits of
+// ws[z][n][k]: thread (x, y) of a block adds splits y, y + blockDim.y, ...
+// in order, then thread (x, 0) adds the blockDim.y partial sums in order,
+// so the result's bits do not change from run to run.
+__global__ void conv3x3_wgrad_reduce(const float* ws, float* dw, float* db, int cout, int k9,
+                                     int ldw, int splits) {
+  float* part = dynamic_smem<float>();  // [blockDim.y][blockDim.x]
+  const int rows = k9 + 1;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n = i / rows, k = i - n * rows;
+  float s = 0.f;
+  if (i < cout * rows) {
+    const float* src = ws + static_cast<size_t>(n) * ldw + k;
+    const size_t stride = static_cast<size_t>(cout) * ldw;
+#pragma unroll 4
+    for (int z = threadIdx.y; z < splits; z += blockDim.y) s += src[z * stride];
+  }
+  part[threadIdx.y * blockDim.x + threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y != 0 || i >= cout * rows) return;
+  for (int y = 1; y < blockDim.y; ++y) s += part[y * blockDim.x + threadIdx.x];
+  if (k < k9)
+    dw[static_cast<size_t>(n) * k9 + k] = s;
+  else if (db != nullptr)
+    db[n] = s;
+}
+
 // The GEMM plans by code, in the order of ops/conv_cuda.py's PLANS:
 // (BM, BN, TN, MIN_BLOCKS, AM).
 template <class F>
@@ -372,6 +563,21 @@ int with_plan(int code, F&& f) {
     case 3: return f(Plan<128, 48, 4, 2, true>{});    // n48
     case 4: return f(Plan<256, 32, 8, 3, false>{});   // n32
     case 5: return f(Plan<256, 16, 4, 4, true>{});    // n16
+    default: return -1;
+  }
+}
+
+// The weight gradient's plans by code, in the same order: the same tiles
+// with A k-major (a slab is BK pixels, whose A rows are channels).
+template <class F>
+int with_wgrad_plan(int code, F&& f) {
+  switch (code) {
+    case 0: return f(Plan<128, 128, 8, 2, false>{});  // wide
+    case 1: return f(Plan<128, 96, 8, 2, false>{});   // n96
+    case 2: return f(Plan<128, 64, 8, 3, false>{});   // n64
+    case 3: return f(Plan<128, 48, 4, 2, false>{});   // n48
+    case 4: return f(Plan<256, 32, 8, 3, false>{});   // n32
+    case 5: return f(Plan<256, 16, 4, 4, false>{});   // n16
     default: return -1;
   }
 }
@@ -441,5 +647,45 @@ extern "C" int ccvpe_conv3x3_direct(const float* x, const float* w, const float*
     conv3x3_direct_kernel<1><<<blocks, 256, smem, st>>>(a);
   else
     conv3x3_direct_kernel<2><<<blocks, 256, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The weight and bias gradients of out = conv3x3(x, w) + bias: x
+// [batch][h][w][cin], g [batch*h*w][cout] (the gradient of the conv's
+// output), ws [splits][cout][ldw] with ldw >= 9*cin + 1 a multiple of 4, dw
+// [cout][ky][kx][cin] (a channels_last weight), db [cout] or null.  Split z
+// takes K slabs z*slabs .. of kBK pixels each.  Every pointer 16-byte
+// aligned.  Returns cudaErrorInvalidValue for arguments it does not take,
+// else cudaGetLastError().
+extern "C" int ccvpe_conv3x3_wgrad(const float* x, const float* g, float* ws, float* dw, float* db,
+                                   int batch, int h, int wd, int cin, int cout, int plan,
+                                   int splits, int slabs, int ldw, void* stream) {
+  const long long m = static_cast<long long>(batch) * h * wd;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long rows = 9LL * cin + 1, total = (m + kBK - 1) / kBK;
+  if (m <= 0 || cin <= 0 || cout <= 0 || splits < 1 || splits > 65535 || slabs < 1 ||
+      m * cin > INT_MAX || m * cout > INT_MAX || rows > INT_MAX || ldw < rows || ldw % 4 ||
+      (splits - 1LL) * slabs >= total || static_cast<long long>(splits) * slabs < total ||
+      static_cast<long long>(cout) * ldw > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rc = with_wgrad_plan(plan, [&](auto p) {
+    using P = decltype(p);
+    const long long tiles = (rows + P::BM - 1) / P::BM * ((cout + P::BN - 1) / P::BN);
+    if (tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    WgradArgs a{x, g, ws, h, wd, cin, cout, static_cast<int>(m), static_cast<int>(rows), ldw,
+                slabs};
+    constexpr auto kernel = &conv3x3_wgrad_kernel<P>;
+    opt_in_smem<kernel>(P::SMEM);
+    kernel<<<dim3(static_cast<unsigned>(tiles), 1, splits), P::THREADS, P::SMEM, st>>>(a);
+    return 0;
+  });
+  if (rc < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (rc > 0) return rc;
+  // the partial sums of a split go to threads y of a block; 256 threads
+  const int zt = splits >= 8 ? 8 : splits >= 4 ? 4 : splits >= 2 ? 2 : 1;
+  const dim3 block(256 / zt, zt);
+  const long long outputs = cout * rows;
+  conv3x3_wgrad_reduce<<<static_cast<unsigned>((outputs + block.x - 1) / block.x), block,
+                         256 * sizeof(float), st>>>(ws, dw, db, cout, 9 * cin, ldw, splits);
   return static_cast<int>(cudaGetLastError());
 }

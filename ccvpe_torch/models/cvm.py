@@ -17,8 +17,9 @@ scale where Cg == Cs (all six VIGOR scales) and K2 elsewhere and for the
 ori-prior full-bin bottleneck stack; on a CPU tensor, their plain versions.
 ``matching_impl="plain"`` forces the plain versions on any device.  With
 autograd on, the kernels' backward is autograd through the plain versions.
-With autograd off and ``matching_impl="kernel"``, the decoders' 24 3x3 convs
-of a CUDA float32 forward go to ``ops.conv_cuda`` (``DoubleConv``); training,
+With ``matching_impl="kernel"``, the decoders' 24 3x3 convs of a CUDA
+float32 forward go to ``ops.conv_cuda`` (``DoubleConv``), with autograd on
+to its ``Conv3x3Function`` (dgrad and wgrad on hand-written kernels too);
 bfloat16, int8 convs and the CPU run the conv modules.
 
 Training uses ``nn.Module.train()``: the BatchNorms normalise with batch
@@ -233,8 +234,9 @@ class DoubleConv(nn.Sequential):
     .2), padded as the reference's own symmetric ``Conv2d(padding=1)`` (not
     TF-SAME).  ``forward(x, impl)`` sends each conv that
     ``ops.conv_cuda.takes_kernel`` accepts (``impl`` 'kernel', a CUDA
-    float32 ``x``, autograd off) to the hand-written kernel, the first with
-    the ReLU in its epilogue; the others run their modules."""
+    float32 ``x``; with autograd on, float32 parameters) to the hand-written
+    kernels, the first with the ReLU in its epilogue (and, with autograd
+    on, its mask in the backward); the others run their modules."""
 
     def __init__(self, cin: int, mid: int, cout: int):
         super().__init__(Conv2d(cin, mid, 3, padding=1), nn.ReLU(),

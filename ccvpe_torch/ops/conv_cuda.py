@@ -11,22 +11,37 @@ K = 9*Cin) with six tile plans, a split of K over blocks where the tiles
 are too few for the card (the 16x16 and 32x32 stages), and a direct kernel
 for Cout 1 and 2.
 
+With autograd on, ``conv3x3`` is ``Conv3x3Function``, whose backward is
+hand-written kernels too: dgrad on the same implicit GEMM with the weight
+transposed and flipped in its taps (``packed_weight(..., transposed=True)``,
+the plan ``choose_plan(B, H, W, Cout, Cin)``), wgrad on
+``conv3x3_wgrad_kernel`` (``choose_wgrad_plan``: the same tile shapes,
+rows 9*Cin + 1, columns Cout, K = pixels split over blocks, the bias
+gradient from a row of ones), written into the weight's ``channels_last``
+layout.  The first conv of a ``DoubleConv`` saves its ReLU's output and
+masks the incoming gradient with it once (``threshold_backward``, as the
+ReLU's own backward does); dgrad and wgrad read that copy.
+
 ``models.cvm.DoubleConv`` sends a conv here where ``takes_kernel`` holds:
 ``impl`` 'kernel' (``CVM.forward``'s ``matching_impl``; 'plain' means no
-hand-written kernel), a CUDA float32 input, autograd off (as under
-``predict_batch``'s ``inference_mode``), a float ``nn.layers.Conv2d`` with no
-hooks.  Training, bfloat16, ``QuantConv2d`` and the CPU keep the modules.
+hand-written kernel), a CUDA float32 input, a float ``nn.layers.Conv2d``
+with no hooks, and with autograd on a float32 weight and bias.  bfloat16
+compute or parameters in training, ``QuantConv2d`` and the CPU keep the
+modules.
 
-``choose_plan`` picks the plan and the split from the shape alone, as a pure
-function that loads no library, so the CPU tests reach it.  For a CUDA
-tensor ``conv3x3`` checks device, dtype, shape and layout and raises on
-anything else; it never falls back to the library.  A CPU tensor takes
-``conv3x3_plain``.  Every call repacks the weight to the kernel's [K][N]
-layout (one copy: no cache can miss a write through ``.data`` or into an
-FSDP buffer).  The launch runs inside the operator ``ccvpe::conv3x3``, so a
-profiler attaches the kernels to it and to the spans around it.
-``LAUNCH_COUNTS`` counts the convolutions launched, by plan, a CUDA graph's
-at each replay (``ops.graphs.count``).
+``choose_plan`` and ``choose_wgrad_plan`` pick the plan and the split from
+the shape alone, as pure functions that load no library, so the CPU tests
+reach them.  For a CUDA tensor ``conv3x3`` checks device, dtype, shape and
+layout and raises on anything else; it never falls back to the library.  A
+CPU tensor takes ``conv3x3_plain``.  Every call repacks the weight to the
+kernel's [K][N] layout (one copy: no cache can miss a write through
+``.data`` or into an FSDP buffer).  Each launch runs inside an operator
+(``ccvpe::conv3x3``, ``ccvpe::conv3x3_dgrad``, ``ccvpe::conv3x3_wgrad``),
+so a profiler attaches the kernels to it and to the spans around it.
+``LAUNCH_COUNTS`` counts the implicit GEMM's and the direct kernel's
+launches (forward and dgrad) by plan, ``PASS_COUNTS`` the convolutions'
+launches by pass (forward, dgrad, wgrad), a CUDA graph's at each replay
+(``ops.graphs.count``).
 """
 
 from __future__ import annotations
@@ -75,8 +90,13 @@ MAX_SPLITS = 8
 MIN_SLABS_PER_SPLIT = 16
 LONG_K = 256               # slabs from which a plan short of a full wave splits K in two
 
-# convolutions launched on the CUDA path, by plan
+WGRAD_MIN_SLABS = 32       # K slabs (of BK pixels) of a wgrad split, at least
+
+# launches of the implicit GEMM and the direct kernel (forward and dgrad), by
+# plan; launches by pass
 LAUNCH_COUNTS = {name: 0 for name in (*PLAN_BY_NAME, DIRECT)}
+PASSES = ("forward", "dgrad", "wgrad")
+PASS_COUNTS = {name: 0 for name in PASSES}
 _COUNT_LOCK = threading.Lock()
 
 
@@ -87,13 +107,27 @@ class Launch(NamedTuple):
     npad: int        # the packed weight's N: Cout rounded up to the plan's BN
 
 
+class WgradLaunch(NamedTuple):
+    plan: str        # a PLANS name: its tile shape, A k-major
+    splits: int      # blocks along K (pixels)
+    slabs: int       # K slabs (BK pixels) of each split
+    ldw: int         # the workspace's row: 9 * Cin + 1 rounded up to 4
+
+
 def launch_counts() -> dict[str, int]:
     with _COUNT_LOCK:
         return dict(LAUNCH_COUNTS)
 
 
-def _count(plan: str) -> None:
-    graphs.count(LAUNCH_COUNTS, _COUNT_LOCK, plan)
+def pass_counts() -> dict[str, int]:
+    with _COUNT_LOCK:
+        return dict(PASS_COUNTS)
+
+
+def _count(plan: str | None, pass_: str = "forward") -> None:
+    if plan is not None:
+        graphs.count(LAUNCH_COUNTS, _COUNT_LOCK, plan)
+    graphs.count(PASS_COUNTS, _COUNT_LOCK, pass_)
 
 
 def n_waste(cout: int, bn: int) -> float:
@@ -105,10 +139,11 @@ def direct_fits(cin: int, cout: int) -> bool:
     return cout in (1, 2) and cin % 4 == 0 and 9 * cin * cout * 4 <= DIRECT_MAX_SMEM
 
 
-def _fastest_plan(cin: int, cout: int) -> ConvPlan:
+def _fastest_plan(cin: int, cout: int, k_major: bool = False) -> ConvPlan:
     """The plan with the least padded Cout over its rate (m-major plans
-    only where Cin is a multiple of 4)."""
-    fits = [p for p in PLANS if not (p.am and cin % 4)]
+    only where Cin is a multiple of 4; every plan where the tiles are all
+    k-major, as wgrad's)."""
+    fits = [p for p in PLANS if k_major or not (p.am and cin % 4)]
     return min(fits, key=lambda p: -(-cout // p.bn) * p.bn / p.tflops)
 
 
@@ -162,6 +197,34 @@ def choose_plan(batch: int, h: int, w: int, cin: int, cout: int,
     return Launch(p.name, splits, slabs, -(-cout // p.bn) * p.bn)
 
 
+@functools.lru_cache(maxsize=1024)
+def choose_wgrad_plan(batch: int, h: int, w: int, cin: int, cout: int,
+                      limits: DeviceLimits = H100, plan: str | None = None,
+                      splits: int | None = None) -> WgradLaunch:
+    """The launch of the weight gradient for this shape: the tile of least
+    padded Cout over its rate (``_fastest_plan``, any plan: wgrad's A is
+    k-major), over 9 * Cin + 1 rows; K (B*H*W pixels, in slabs of BK) split
+    until the tiles fill the resident slots of one wave, each split keeping
+    WGRAD_MIN_SLABS slabs.  ``plan`` and ``splits`` force them.  A pure
+    function of the shape."""
+    if plan is None:
+        p = _fastest_plan(cin, cout, k_major=True)
+    elif plan in PLAN_BY_NAME:
+        p = PLAN_BY_NAME[plan]
+    else:
+        raise ValueError(f"plan must be one of {tuple(PLAN_BY_NAME)}, got {plan!r}")
+    rows = 9 * cin + 1
+    total = -(-(batch * h * w) // BK)
+    if splits is None:
+        tiles = -(-rows // p.bm) * -(-cout // p.bn)
+        most = max(1, total // WGRAD_MIN_SLABS)
+        splits = min(most, max(1, limits.sms * p.blocks // tiles))
+    splits = min(splits, total, 65535)
+    slabs = -(-total // splits)
+    splits = -(-total // slabs)   # no empty split
+    return WgradLaunch(p.name, splits, slabs, -(-rows // 4) * 4)
+
+
 def conv3x3_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
                   relu: bool = False) -> torch.Tensor:
     """The kernel's function in plain PyTorch (what the modules compute)."""
@@ -171,22 +234,31 @@ def conv3x3_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | No
 
 def takes_kernel(x: torch.Tensor, conv: torch.nn.Module, impl: str) -> bool:
     """Whether ``models.cvm.DoubleConv`` sends ``conv`` on ``x`` to the
-    kernel (the route in this module's docstring).  A module with forward
-    hooks (``nn.quant.calibrate``'s observers) keeps its own forward."""
-    return (impl == "kernel" and x.is_cuda and x.dtype == torch.float32
-            and not torch.is_grad_enabled() and type(conv) is Conv2d
-            and not (conv._forward_hooks or conv._forward_pre_hooks))
+    kernels (the route in this module's docstring).  A module with forward
+    hooks (``nn.quant.calibrate``'s observers) keeps its own forward; with
+    autograd on, so does a conv whose weight or bias is not float32 (the
+    gradient would have to flow back through a cast)."""
+    if not (impl == "kernel" and x.is_cuda and x.dtype == torch.float32
+            and type(conv) is Conv2d and not (conv._forward_hooks or conv._forward_pre_hooks)):
+        return False
+    return not torch.is_grad_enabled() or all(
+        p is None or p.dtype == torch.float32 for p in (conv.weight, conv.bias))
 
 
-def packed_weight(weight: torch.Tensor, npad: int, chunk: int) -> torch.Tensor:
+def packed_weight(weight: torch.Tensor, npad: int, chunk: int,
+                  transposed: bool = False) -> torch.Tensor:
     """``weight`` [Cout, Cin, 3, 3] as the kernel's B, float32: K runs over
     chunks of ``chunk`` channels (Cin zero-padded to a whole number of
     them), the nine taps of each chunk in turn, so row ((j * 3 + ky) * 3 +
     kx) * chunk + cc holds ``weight[:, j * chunk + cc, ky, kx]``; columns
-    zero-padded to ``npad``."""
-    cout, cin = weight.shape[:2]
-    cp = -(-cin // chunk) * chunk
+    zero-padded to ``npad``.  ``transposed``: the weight of dgrad instead,
+    ``weight.transpose(0, 1).flip(2, 3)`` ([Cin, Cout, 3, 3]: the input's
+    gradient is the conv of the output's gradient with it)."""
     w = weight.detach()
+    if transposed:
+        w = w.transpose(0, 1).flip(2, 3)
+    cout, cin = w.shape[:2]
+    cp = -(-cin // chunk) * chunk
     if cp != cin:
         w = F.pad(w, (0, 0, 0, 0, 0, cp - cin))
     packed = torch.empty((cp // chunk, 3, 3, chunk, npad), dtype=torch.float32,
@@ -205,6 +277,8 @@ def _kernels() -> ctypes.CDLL:
     lib.ccvpe_conv3x3.restype = i
     lib.ccvpe_conv3x3_direct.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.ccvpe_conv3x3_direct.restype = i
+    lib.ccvpe_conv3x3_wgrad.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    lib.ccvpe_conv3x3_wgrad.restype = i
     return lib
 
 
@@ -229,12 +303,11 @@ def _check(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None) -> 
         raise ValueError("conv3x3 needs x 16-byte aligned")
 
 
-def _launch_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
-                 relu: bool, plan: str, splits: int, slabs: int, npad: int) -> torch.Tensor:
-    """The body of ``ccvpe::conv3x3`` on a CUDA tensor: repack, allocate, launch."""
+def _run(x: torch.Tensor, wp: torch.Tensor, bias: torch.Tensor | None, relu: bool,
+         cout: int, plan: str, splits: int, slabs: int, npad: int) -> torch.Tensor:
+    """Allocate and launch the implicit GEMM (or the direct kernel) on ``x``
+    with the packed weight ``wp``."""
     b, cin, h, w = x.shape
-    cout = weight.shape[0]
-    wp = packed_weight(weight, npad, cin if plan == DIRECT else BK)
     bp = None if bias is None else bias.to(torch.float32).contiguous()
     out = torch.empty((b, cout, h, w), dtype=torch.float32, device=x.device,
                       memory_format=torch.channels_last)
@@ -257,37 +330,161 @@ def _launch_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | Non
     return out
 
 
-# The launch as a dispatcher operator: a profiler records ``ccvpe::conv3x3``
-# around it and attaches the kernels to it (a ctypes launch outside any
-# operator links to none, so a span's readers would not see it).
+def _launch_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
+                 relu: bool, plan: str, splits: int, slabs: int, npad: int) -> torch.Tensor:
+    """The body of ``ccvpe::conv3x3`` on a CUDA tensor: repack, allocate, launch."""
+    wp = packed_weight(weight, npad, x.shape[1] if plan == DIRECT else BK)
+    return _run(x, wp, bias, relu, weight.shape[0], plan, splits, slabs, npad)
+
+
+def _launch_dgrad_cuda(g: torch.Tensor, weight: torch.Tensor, plan: str, splits: int,
+                       slabs: int, npad: int) -> torch.Tensor:
+    """The body of ``ccvpe::conv3x3_dgrad``: the input's gradient from the
+    output's gradient ``g`` (the forward's weight, repacked transposed and
+    flipped)."""
+    wp = packed_weight(weight, npad, g.shape[1] if plan == DIRECT else BK, transposed=True)
+    return _run(g, wp, None, False, weight.shape[1], plan, splits, slabs, npad)
+
+
+def _launch_wgrad_cuda(x: torch.Tensor, g: torch.Tensor, plan: str, splits: int, slabs: int,
+                       ldw: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The body of ``ccvpe::conv3x3_wgrad``: the weight's gradient, in the
+    ``channels_last`` layout, and the bias's."""
+    b, cin, h, w = x.shape
+    cout = g.shape[1]
+    ws = torch.empty((splits, cout, ldw), dtype=torch.float32, device=x.device)
+    dw = torch.empty((cout, cin, 3, 3), dtype=torch.float32, device=x.device,
+                     memory_format=torch.channels_last)
+    db = torch.empty((cout,), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _kernels().ccvpe_conv3x3_wgrad(
+            x.data_ptr(), g.data_ptr(), ws.data_ptr(), dw.data_ptr(), db.data_ptr(), b, h, w,
+            cin, cout, PLANS.index(PLAN_BY_NAME[plan]), splits, slabs, ldw, stream)
+    if rc != 0:
+        raise RuntimeError(f"conv3x3 wgrad ({plan}) launch failed: cudaError {rc}")
+    return dw, db
+
+
+# The launches as dispatcher operators: a profiler records ``ccvpe::conv3x3``
+# (and its dgrad and wgrad) around them and attaches the kernels to them (a
+# ctypes launch outside any operator links to none, so a span's readers
+# would not see it).
 _LIB = torch.library.Library("ccvpe", "DEF")
 _LIB.define("conv3x3(Tensor x, Tensor weight, Tensor? bias, bool relu, str plan, int splits, "
             "int slabs, int npad) -> Tensor")
 _LIB.impl("conv3x3", _launch_cuda, "CUDA")
+_LIB.define("conv3x3_dgrad(Tensor g, Tensor weight, str plan, int splits, int slabs, "
+            "int npad) -> Tensor")
+_LIB.impl("conv3x3_dgrad", _launch_dgrad_cuda, "CUDA")
+_LIB.define("conv3x3_wgrad(Tensor x, Tensor g, str plan, int splits, int slabs, int ldw) "
+            "-> (Tensor, Tensor)")
+_LIB.impl("conv3x3_wgrad", _launch_wgrad_cuda, "CUDA")
+
+
+def _check_size(x: torch.Tensor, cout: int, splits: int) -> None:
+    b, cin, h, w = x.shape
+    if b * h * w * max(cin, cout * splits) >= 2 ** 31:
+        raise ValueError(f"conv3x3 indexes with 32-bit ints; {tuple(x.shape)} to "
+                         f"{cout} channels ({splits} splits) is too large")
 
 
 def _conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None, relu: bool,
              launch: Launch) -> torch.Tensor:
     """The kernel on a checked CUDA ``x`` with the launch given (tests force
     one through ``choose_plan``'s ``plan`` and ``splits``)."""
-    b, cin, h, w = x.shape
-    if b * h * w * max(cin, weight.shape[0] * launch.splits) >= 2 ** 31:
-        raise ValueError(f"conv3x3 indexes with 32-bit ints; {tuple(x.shape)} to "
-                         f"{weight.shape[0]} channels ({launch.splits} splits) is too large")
+    _check_size(x, weight.shape[0], launch.splits)
     out = torch.ops.ccvpe.conv3x3(x, weight, bias, relu, *launch)
-    _count(launch.plan)
+    _count(launch.plan, "forward")
     return out
+
+
+def _conv3x3_dgrad(g: torch.Tensor, weight: torch.Tensor, launch: Launch) -> torch.Tensor:
+    """dgrad on a checked CUDA ``g`` with the launch given."""
+    _check_size(g, weight.shape[1], launch.splits)
+    out = torch.ops.ccvpe.conv3x3_dgrad(g, weight, *launch)
+    _count(launch.plan, "dgrad")
+    return out
+
+
+def _conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, launch: WgradLaunch
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """wgrad on checked CUDA ``x`` and ``g`` with the launch given."""
+    _check_size(x, g.shape[1], 1)
+    dw, db = torch.ops.ccvpe.conv3x3_wgrad(x, g, *launch)
+    _count(None, "wgrad")
+    return dw, db
+
+
+def _limits(x: torch.Tensor) -> DeviceLimits:
+    return device_limits(x.device.index or 0)
+
+
+def _forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
+             relu: bool) -> torch.Tensor:
+    b, cin, h, w = x.shape
+    return _conv3x3(x, weight, bias, relu,
+                    choose_plan(b, h, w, cin, weight.shape[0], _limits(x)))
+
+
+def _dgrad(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    b, cout, h, w = g.shape
+    return _conv3x3_dgrad(g, weight, choose_plan(b, h, w, cout, weight.shape[1], _limits(g)))
+
+
+def _wgrad(x: torch.Tensor, g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    b, cin, h, w = x.shape
+    return _conv3x3_wgrad(x, g, choose_wgrad_plan(b, h, w, cin, g.shape[1], _limits(x)))
+
+
+def _dense(g: torch.Tensor) -> torch.Tensor:
+    """An incoming gradient as the kernels read it: channels_last, 16-byte
+    aligned."""
+    g = g.contiguous(memory_format=torch.channels_last)
+    return g if g.data_ptr() % 16 == 0 else g.clone(memory_format=torch.channels_last)
+
+
+class Conv3x3Function(torch.autograd.Function):
+    """``conv3x3`` with autograd: its forward is the inference launch; its
+    backward masks the gradient by the ReLU's output (``relu``), then runs
+    dgrad and wgrad (``_forward``, ``_dgrad``, ``_wgrad``: the module's
+    launchers, looked up at each call)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, relu):
+        y = _forward(x, weight, bias, relu)
+        ctx.relu = relu
+        ctx.save_for_backward(x, weight, y if relu else None)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, weight, y = ctx.saved_tensors
+        gy = _dense(gy)
+        if ctx.relu:
+            gy = torch.ops.aten.threshold_backward(gy, y, 0)
+        dx = _dgrad(gy, weight) if ctx.needs_input_grad[0] else None
+        dw = db = None
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dw, db = _wgrad(x, gy)
+        return dx, dw, db if ctx.needs_input_grad[2] else None, None
+
+
+def _dispatch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
+              relu: bool = False) -> torch.Tensor:
+    """With autograd on, ``Conv3x3Function``; off, the forward's launch alone."""
+    if torch.is_grad_enabled():
+        return Conv3x3Function.apply(x, weight, bias, relu)
+    return _forward(x, weight, bias, relu)
 
 
 def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
             relu: bool = False) -> torch.Tensor:
     """``act(conv2d(x, weight, bias, padding=1))`` for a ``channels_last``
-    float32 ``x``, as a ``channels_last`` tensor: the kernel on a CUDA
-    tensor, in the plan ``choose_plan`` picks; the plain version on a CPU
-    tensor."""
+    float32 ``x``, as a ``channels_last`` tensor: the kernels on a CUDA
+    tensor, in the plans ``choose_plan`` and ``choose_wgrad_plan`` pick (with
+    autograd on, ``Conv3x3Function``); the plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return conv3x3_plain(x, weight, bias, relu)
     _check(x, weight, bias)
-    b, cin, h, w = x.shape
-    launch = choose_plan(b, h, w, cin, weight.shape[0], device_limits(x.device.index or 0))
-    return _conv3x3(x, weight, bias, relu, launch)
+    return _dispatch(x, weight, bias, relu)

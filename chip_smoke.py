@@ -24,7 +24,10 @@ Phases, each printing one JSON line:
    ``csrc/conv3x3.cu``) at every decoder shape of VIGOR, KITTI and Oxford
    at batch 8 against a float64 conv (1e-5 of the output's largest
    magnitude, the card tests' bar); the device ms of each VIGOR and KITTI
-   shape beside cuDNN's heuristic and searched algorithms and the bound.
+   shape beside cuDNN's heuristic and searched algorithms and the bound;
+   and at each VIGOR and KITTI shape the backward's dgrad and wgrad (with
+   the bias gradient) against float64 ``conv2d_input``/``conv2d_weight``,
+   timed beside cuDNN's heuristic (``convolution_backward``) and the bound.
 4. model:   ``ccvpe_torch.api.load_model(preset="VIGOR", seed=0)`` on the
    card; ``predict_batch`` at batch 8 with ``ori_noise`` 180 and 36 and with
    ``fov=180``, counting 24 decoder conv launches in each and kernel
@@ -44,7 +47,8 @@ Phases, each printing one JSON line:
    step through the plain versions (loss parts, every gradient, the new BN
    statistics; 6 K1 launches, 3 tile and 3 warp); (b) 2 warm-up and 5 timed
    steps with drop-connect (finite losses, everything moved, samples/s,
-   peak memory); (c) one NANO step on the card against the CPU; (d) the
+   peak memory, 24 forward, 24 dgrad and 24 wgrad launches of the decoder
+   conv kernels a step); (c) one NANO step on the card against the CPU; (d) the
    device time of one step by part (forward, matching backward, rest of
    the backward, optimizer) and by kernel (``torch.profiler``).
    train_options: the training options on the same VIGOR step (batch 8,
@@ -684,6 +688,56 @@ def _conv_launches() -> int:
     return sum(CC.launch_counts().values())
 
 
+def _conv_backward(x, wt, dev: dict) -> dict:
+    """dgrad and wgrad (``ops.conv_cuda._dgrad``, ``_wgrad``) of one shape
+    against float64 ``conv2d_input`` / ``conv2d_weight`` and the bias sum,
+    each timed beside cuDNN's heuristic (``convolution_backward`` with that
+    gradient alone, as the conv modules' backward runs it) and the bound."""
+    b, cin, h, w = x.shape
+    cout = wt.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(cin * 7919 + cout)
+    gy = torch.randn((b, cout, h, w), generator=gen, device="cuda").contiguous(
+        memory_format=torch.channels_last)
+    with torch.no_grad():
+        dx = CC._dgrad(gy, wt)
+        dw, db = CC._wgrad(x, gy)
+    g64 = gy.double()
+    errs = {}
+    for name, got, want in (
+            ("dgrad", dx, torch.nn.grad.conv2d_input(tuple(x.shape), wt.double(), g64, padding=1)),
+            ("wgrad", dw, torch.nn.grad.conv2d_weight(x.double(), tuple(wt.shape), g64,
+                                                      padding=1)),
+            ("bias", db, g64.sum((0, 2, 3)))):
+        errs[name] = (got.double() - want).abs().max().item() / want.abs().max().item()
+        if not errs[name] <= CONV_REL_TOL:
+            raise AssertionError(f"conv3x3 {name} {[b, h, w, cin, cout]}: error {errs[name]} "
+                                 f"of the largest gradient (bar {CONV_REL_TOL})")
+    del dx, dw, db, g64
+    flops = 2 * b * h * w * 9 * cin * cout
+    bound_d = _bound(4 * (b * h * w * (cin + cout) + 9 * cin * cout), flops, dev)
+    bound_w = _bound(4 * (b * h * w * (cin + cout) + 9 * cin * cout + cout), flops, dev)
+
+    def library(mask):
+        return lambda: torch.ops.aten.convolution_backward(
+            gy, x, wt, [cout], [1, 1], [1, 1], [1, 1], False, [0, 0], 1, mask)
+
+    with torch.no_grad():
+        row = {"dgrad_ms": device_ms(lambda: CC._dgrad(gy, wt)),
+               "dgrad_library_ms": device_ms(library([True, False, False])),
+               "dgrad_bound_ms": bound_d[0],
+               "dgrad_launch": CC.choose_plan(b, h, w, cout, cin)._asdict(),
+               "wgrad_ms": device_ms(lambda: CC._wgrad(x, gy)),
+               "wgrad_library_ms": device_ms(library([False, True, True])),
+               "wgrad_bound_ms": bound_w[0],
+               "wgrad_launch": CC.choose_wgrad_plan(b, h, w, cin, cout)._asdict()}
+    return {**row, "dgrad_rel_err": errs["dgrad"],
+            "wgrad_rel_err": max(errs["wgrad"], errs["bias"])}
+
+
+BACKWARD_KEYS = ("dgrad_ms", "dgrad_library_ms", "dgrad_bound_ms", "wgrad_ms",
+                 "wgrad_library_ms", "wgrad_bound_ms")
+
+
 def phase_conv(dev: dict) -> dict:
     """The decoders' 3x3 conv kernel (``ops.conv_cuda.conv3x3``) at every
     decoder shape of VIGOR, KITTI and Oxford at batch 8, against a float64
@@ -691,8 +745,9 @@ def phase_conv(dev: dict) -> dict:
     runs it); then, at each VIGOR and KITTI shape, the device ms of the
     kernel, of cuDNN's heuristic choice (``F.conv2d``: the conv modules'
     path) and of cuDNN's searched algorithm (``cudnn.benchmark``), beside
-    the bound (FLOPs at the float32 FFMA peak or bytes at the memory rate).
-    Oxford's shapes are VIGOR's."""
+    the bound (FLOPs at the float32 FFMA peak or bytes at the memory rate),
+    and the backward's dgrad and wgrad checked and timed
+    (``_conv_backward``).  Oxford's shapes are VIGOR's."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     errs, info = {}, {"phase": "conv", "card": dev["nvidia_smi"], "batch": BATCH,
@@ -732,16 +787,20 @@ def phase_conv(dev: dict) -> dict:
             rows.append({"conv": name, "shape": list(shape), "relu": relu,
                          "launch": launch._asdict(), "ms": ms, "library_ms": heuristic,
                          "library_search_ms": search, "bound_ms": bound, "bound_by": by,
-                         "flops": flops, "bytes": nbytes, "rel_err": errs[(shape, relu)]})
+                         "flops": flops, "bytes": nbytes, "rel_err": errs[(shape, relu)],
+                         **_conv_backward(x, wt, dev)})
             del x, wt, bias
         checked = [errs[(s, n.endswith(".0"))] for n, s in decoder_conv_shapes(cfg, BATCH)]
         entry = {"max_rel_err": max(checked), "rows": rows}
         if rows:
             total = {k: sum(r[k] for r in rows) for k in
-                     ("ms", "library_ms", "library_search_ms", "bound_ms", "flops", "bytes")}
+                     ("ms", "library_ms", "library_search_ms", "bound_ms", "flops", "bytes",
+                      *BACKWARD_KEYS)}
             entry.update(total, bound_by=_bound(total["bytes"], total["flops"], dev)[1],
                          tflops=total["flops"] / total["ms"] / 1e9,
-                         pct_of_bound=100 * total["bound_ms"] / total["ms"])
+                         pct_of_bound=100 * total["bound_ms"] / total["ms"],
+                         max_backward_rel_err=max(max(r["dgrad_rel_err"], r["wgrad_rel_err"])
+                                                  for r in rows))
         info["presets"][preset] = entry
     # the split-K and the direct kernel replayed from a CUDA graph, as
     # predict_batch runs them
@@ -1055,7 +1114,6 @@ def phase_train(dev: dict, out: Path | None) -> dict:
     # (a) kernel against plain, one step from identical weights, no drop-connect
     k_step = TLOOP.make_train_step(cfg)
     MC.reset_launch_counts()
-    conv0 = _conv_launches()
     k_parts = k_step(state, _normalized(data))
     torch.cuda.synchronize()
     k_layouts = {k: n for k, n in MC.launch_counts("layout").items() if n}
@@ -1080,6 +1138,7 @@ def phase_train(dev: dict, out: Path | None) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     MC.reset_launch_counts()
+    passes0 = CC.pass_counts()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     w0 = time.perf_counter()
     a.record()
@@ -1090,10 +1149,11 @@ def phase_train(dev: dict, out: Path | None) -> dict:
     launches = MC.launch_counts()
     if launches != {"matching_epilogue": 6 * TRAIN_TIMED, "matching_scores": 0}:
         raise AssertionError(f"{TRAIN_TIMED} train steps launched {launches}")
-    # the train step's forward records autograd: its decoder convs keep the modules
-    if _conv_launches() != conv0:
-        raise AssertionError(f"the train steps launched {_conv_launches() - conv0} decoder "
-                             "conv kernels, want 0")
+    # the decoders' 24 convs of a step: forward, dgrad and wgrad on the kernels
+    passes = {k: (v - passes0[k]) / TRAIN_TIMED for k, v in CC.pass_counts().items()}
+    if passes != {"forward": 24, "dgrad": 24, "wgrad": 24}:
+        raise AssertionError(f"a train step launched the decoder conv kernels {passes} "
+                             "times by pass, want 24 each")
     step_ms = a.elapsed_time(b) / TRAIN_TIMED
     loss_values = [p["loss"].item() for p in step_parts]
     if not all(math.isfinite(v.item()) for p in step_parts for v in p.values()):
@@ -1112,7 +1172,7 @@ def phase_train(dev: dict, out: Path | None) -> dict:
             "kernel_vs_plain": {**check, "launches_by_layout": {
                 f"{k} {lay}": n for (k, lay), n in k_layouts.items()}},
             "steps": TRAIN_WARMUP + TRAIN_TIMED, "timed_steps": TRAIN_TIMED,
-            "launches": launches, "conv_launches": _conv_launches() - conv0,
+            "launches": launches, "conv_launches_per_step": passes,
             "losses": loss_values, "step_ms": step_ms,
             "samples_per_s": BATCH / (step_ms * 1e-3),
             "wall_samples_per_s": BATCH * TRAIN_TIMED / wall_s,
@@ -3622,8 +3682,8 @@ def kernels_line(kern: dict, model: dict, presets: dict, train: dict, data: dict
         for row in summary:
             row["launches"] = sum(row["launches_by_path"].values())
     # the decoders' 3x3 convs: their times summed over a call's 24 shapes
-    # (phase ``conv``), launches counted on each predict_batch; the train
-    # step launches none (phase ``train`` checks it)
+    # (phase ``conv``; the backward's dgrad and wgrad beside them), launches
+    # counted on each predict_batch; a train step's by pass (phase ``train``)
     if conv is not None:
         oxford = sum(r["conv_launches"] for r in presets["presets"]["OxfordRobotCar"]["results"])
         paths = {"VIGOR": {"predict_batch": sum(model["conv_launches_per_setting"]),
@@ -3641,7 +3701,9 @@ def kernels_line(kern: dict, model: dict, presets: dict, train: dict, data: dict
                    "timed_at": f"sum over the 24 decoder convs of a batch-{BATCH} call",
                    "plans": [r["launch"]["plan"] for r in c["rows"]],
                    "launches_by_path": by_path, "launches": sum(by_path.values()),
-                   "launches_train_step": train["conv_launches"]}
+                   "launches_train_step": train["conv_launches_per_step"],
+                   **{k: c[k] for k in BACKWARD_KEYS},
+                   "max_backward_rel_err": c["max_backward_rel_err"]}
             if preset == "VIGOR" and timing is not None:
                 row["main_path_ms_per_call"] = timing["profile"]["conv_kernels_ms_per_call"]
                 row["main_path_launches_per_call"] = timing["profile"][

@@ -1,5 +1,7 @@
 """The decoders' 3x3 conv route and launch plans (``ops.conv_cuda``,
-``models.cvm.DoubleConv``), on the CPU: the kernel itself runs only on the
+``models.cvm.DoubleConv``), the backward's formulations (dgrad as a conv with
+the repacked weight, wgrad as a GEMM over pixels) and the autograd Function
+with plain launchers, on the CPU: the kernels themselves run only on the
 card (``tests/test_torch_conv_cuda.py``)."""
 
 from types import SimpleNamespace
@@ -11,6 +13,8 @@ import torch.nn.functional as F
 from ccvpe_torch.models import cvm
 from ccvpe_torch.nn.layers import Conv2d, QuantConv2d
 from ccvpe_torch.ops import conv_cuda as C
+from ccvpe_torch.ops import gt as GT
+from ccvpe_torch.train import loop as TLOOP
 from tests.torch_conv_shapes import decoder_conv_shapes
 
 CONFIGS = [cvm.VIGOR, cvm.KITTI, cvm.OXFORD]
@@ -75,10 +79,43 @@ def test_route():
         assert not C.takes_kernel(_cuda_like(), conv, "kernel")
         handle.remove()
         assert C.takes_kernel(_cuda_like(), conv, "kernel")
-    with torch.enable_grad():
-        assert not C.takes_kernel(_cuda_like(), conv, "kernel")
     with torch.inference_mode():
         assert C.takes_kernel(_cuda_like(), conv, "kernel")
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_route_with_autograd(grad):
+    """With autograd on, a CUDA float32 input and float32 parameters take
+    the kernels (through ``Conv3x3Function``); bfloat16 parameters (as
+    ``F32MasterAdam`` keeps them), bfloat16 compute, the CPU and 'plain'
+    keep the modules.  With autograd off, bfloat16 parameters take the
+    kernel as before (the launch repacks them to float32)."""
+    conv = Conv2d(8, 8, 3, padding=1)
+    half = Conv2d(8, 8, 3, padding=1).to(torch.bfloat16)
+    with torch.set_grad_enabled(grad):
+        assert C.takes_kernel(_cuda_like(), conv, "kernel")
+        assert not C.takes_kernel(_cuda_like(), conv, "plain")
+        assert not C.takes_kernel(_cuda_like(torch.bfloat16), conv, "kernel")
+        assert not C.takes_kernel(torch.zeros(1, 8, 4, 4), conv, "kernel")
+        assert C.takes_kernel(_cuda_like(), half, "kernel") is not grad
+
+
+def test_dispatch_sends_grad_on_to_the_function(monkeypatch):
+    """``conv3x3`` on a (checked) CUDA tensor: the Function exactly when
+    autograd is on, the forward's launch alone when it is off."""
+    calls = []
+    monkeypatch.setattr(C, "_forward", lambda x, w, b, relu: calls.append("launch") or x)
+    monkeypatch.setattr(C.Conv3x3Function, "apply",
+                        lambda *a: calls.append("function") or a[0])
+    x = torch.zeros(1, 8, 4, 4)
+    w = torch.zeros(8, 8, 3, 3)
+    with torch.enable_grad():
+        C._dispatch(x, w, None, False)
+    with torch.no_grad():
+        C._dispatch(x, w, None, False)
+    with torch.inference_mode():
+        C._dispatch(x, w, None, False)
+    assert calls == ["function", "launch", "launch"]
 
 
 def _tiny_inputs(cfg, b=1, seed=0):
@@ -189,3 +226,171 @@ def test_conv3x3_cpu_is_the_plain_version():
     w, b = torch.randn(4, 8, 3, 3, generator=g), torch.randn(4, generator=g)
     assert torch.equal(C.conv3x3(x, w, b, relu=True), F.relu(F.conv2d(x, w, b, padding=1)))
     assert torch.equal(C.conv3x3(x, w, None), F.conv2d(x, w, None, padding=1))
+
+
+def _ints(*shape, seed, lo=-4, hi=5):
+    """Small integers as float64: every product and sum below is exact."""
+    return torch.randint(lo, hi, shape, generator=torch.Generator().manual_seed(seed)).double()
+
+
+def _im2col(t: torch.Tensor, chunk: int) -> torch.Tensor:
+    """[B, C, H, W] -> [B*H*W, 9 * Cp]: each pixel's 3x3 neighbourhood (zero
+    outside) in the kernel's K order, chunks of ``chunk`` channels (C
+    zero-padded to Cp), the nine taps of a chunk in turn."""
+    b, c, h, w = t.shape
+    cp = -(-c // chunk) * chunk
+    cols = F.unfold(F.pad(t, (0, 0, 0, 0, 0, cp - c)), 3, padding=1)  # [B, Cp*9, HW]
+    cols = cols.view(b, cp // chunk, chunk, 3, 3, h * w).permute(0, 5, 1, 3, 4, 2)
+    return cols.reshape(b * h * w, 9 * cp)
+
+
+@pytest.mark.parametrize("cin,cout,chunk", [(12, 5, C.BK), (20, 37, C.BK), (16, 2, 2),
+                                            (16, 1, C.BK)])
+def test_dgrad_repack_times_im2col_is_conv2d_input(cin, cout, chunk):
+    """dgrad as the forward kernel runs it: the output's gradient g
+    gathered as the forward's A (Cout channels in chunks), times the weight
+    packed transposed and flipped (``packed_weight(..., transposed=True)``),
+    is ``conv2d_input``.  Chunk 2 is the direct kernel's packing (chunk =
+    its Cin); Cout 1 and 2 are the last convs', whose dgrad has Cin 1 or 2."""
+    b, h, w = 2, 5, 7
+    wt = _ints(cout, cin, 3, 3, seed=cin)
+    g = _ints(b, cout, h, w, seed=cout)
+    npad = -(-cin // 8) * 8
+    packed = C.packed_weight(wt, npad, chunk, transposed=True).double()
+    assert packed.shape == (9 * (-(-cout // chunk) * chunk), npad)
+    assert torch.equal(packed[:, cin:], torch.zeros_like(packed[:, cin:]))
+    got = (_im2col(g, chunk) @ packed[:, :cin]).view(b, h, w, cin).permute(0, 3, 1, 2)
+    want = torch.nn.grad.conv2d_input((b, cin, h, w), wt, g, padding=1)
+    assert torch.equal(got, want)
+
+
+def _wgrad_gemm(x: torch.Tensor, g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The weight gradient as ``conv3x3_wgrad_kernel`` computes it: rows k =
+    tap * Cin + c (tap = ky * 3 + kx) of x's gathered halo and a row of
+    ones, times g's rows, summed over the pixels; the result read as the
+    channels_last weight [Cout][ky][kx][Cin] and the bias."""
+    b, cin, h, w = x.shape
+    cout = g.shape[1]
+    taps = F.unfold(x, 3, padding=1).view(b, cin, 9, h * w).permute(2, 1, 0, 3)
+    a = torch.cat([taps.reshape(9 * cin, b * h * w), x.new_ones(1, b * h * w)])
+    c = a @ g.permute(0, 2, 3, 1).reshape(b * h * w, cout)          # [9 Cin + 1, Cout]
+    flat = c.t().contiguous()                                        # ws[n][k], one split
+    dw = flat[:, :9 * cin].contiguous().view(cout, 3, 3, cin).permute(0, 3, 1, 2)
+    return dw, flat[:, 9 * cin]
+
+
+@pytest.mark.parametrize("cin,cout", [(12, 5), (6, 2), (16, 1), (24, 40)])
+def test_wgrad_gemm_is_conv2d_weight(cin, cout):
+    b, h, w = 3, 4, 9
+    x = _ints(b, cin, h, w, seed=cin, lo=0)
+    g = _ints(b, cout, h, w, seed=cout)
+    dw, db = _wgrad_gemm(x, g)
+    assert dw.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(dw, torch.nn.grad.conv2d_weight(x, (cout, cin, 3, 3), g, padding=1))
+    assert torch.equal(db, g.sum((0, 2, 3)))
+
+
+@pytest.mark.parametrize("cfg", CONFIGS, ids=lambda c: c.name)
+def test_every_decoder_shape_gets_backward_plans(cfg):
+    """dgrad's launch is the forward's at (Cout -> Cin): Cin 1 and 2 (the
+    last convs) take a k-major plan.  wgrad's tiles cover 9 * Cin + 1 rows
+    and Cout columns with little padding of Cout, its splits fill one wave
+    of resident blocks and keep WGRAD_MIN_SLABS slabs each."""
+    for name, (b, h, w, cin, cout) in decoder_conv_shapes(cfg, 8):
+        d = C.choose_plan(b, h, w, cout, cin)
+        if cout <= 2:
+            assert not C.PLAN_BY_NAME[d.plan].am, (name, d)
+        total = 9 * -(-cout // C.BK)
+        assert d.splits * d.slabs >= total > (d.splits - 1) * d.slabs
+        launch = C.choose_wgrad_plan(b, h, w, cin, cout)
+        plan = C.PLAN_BY_NAME[launch.plan]
+        if cout > 2:
+            assert C.n_waste(cout, plan.bn) <= MAX_N_WASTE, (name, launch)
+        pixels = -(-(b * h * w) // C.BK)
+        assert launch.splits * launch.slabs >= pixels > (launch.splits - 1) * launch.slabs
+        tiles = -(-(9 * cin + 1) // plan.bm) * -(-cout // plan.bn)
+        assert tiles * launch.splits <= max(tiles, C.H100.sms * plan.blocks), (name, launch)
+        assert launch.splits == 1 or launch.slabs >= C.WGRAD_MIN_SLABS
+        assert launch.ldw % 4 == 0 and 9 * cin + 1 <= launch.ldw < 9 * cin + 5
+
+
+def test_choose_wgrad_plan_forced_and_refused():
+    assert C.choose_wgrad_plan(3, 17, 33, 20, 37, plan="n16", splits=3) == C.WgradLaunch(
+        "n16", 3, 71, 184)
+    # 211 slabs: never an empty split, never more splits than slabs
+    assert C.choose_wgrad_plan(3, 17, 33, 20, 37, plan="wide", splits=10 ** 6).splits == 211
+    assert C.choose_wgrad_plan(8, 512, 512, 16, 16).splits > 100
+    with pytest.raises(ValueError, match="plan must be"):
+        C.choose_wgrad_plan(2, 8, 8, 24, 40, plan=C.DIRECT)
+
+
+def _plain_launchers(monkeypatch, calls):
+    """``Conv3x3Function``'s launchers as plain CPU ops (what the modules'
+    autograd runs: ``convolution_backward`` and the ReLU's
+    ``threshold_backward``), each call recorded by pass."""
+    def forward(x, weight, bias, relu):
+        calls.append("forward")
+        return C.conv3x3_plain(x, weight, bias, relu)
+
+    def dgrad(g, weight):
+        calls.append("dgrad")
+        b, _, h, w = g.shape
+        return torch.nn.grad.conv2d_input((b, weight.shape[1], h, w), weight, g, padding=1)
+
+    def wgrad(x, g):
+        calls.append("wgrad")
+        _, dw, db = torch.ops.aten.convolution_backward(
+            g, x, x.new_empty(g.shape[1], x.shape[1], 3, 3), [g.shape[1]], [1, 1], [1, 1],
+            [1, 1], False, [0, 0], 1, [False, True, True])
+        return dw, db
+
+    def route(x, conv, impl):
+        return (impl == "kernel" and x.dtype == torch.float32 and type(conv) is Conv2d)
+
+    monkeypatch.setattr(C, "_forward", forward)
+    monkeypatch.setattr(C, "_dgrad", dgrad)
+    monkeypatch.setattr(C, "_wgrad", wgrad)
+    monkeypatch.setattr(C, "takes_kernel", route)
+    monkeypatch.setattr(C, "conv3x3", C._dispatch)
+
+
+def _tiny_step(matching_impl: str, remat=False):
+    cfg = cvm.TINY
+    state = TLOOP.create_train_state(cfg, seed=4, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    b = 2
+    off = (torch.rand((2, b), generator=gen) * 2 - 1) * 30
+    angle = torch.rand((b,), generator=gen) * 360
+    gt, weights, omap = GT.synthesize_batch_factored(
+        off[0], off[1], angle, height=cfg.sat_hw[0], width=cfg.sat_hw[1], bins=cfg.bins)
+    batch = {"grd": torch.randn((b, *cfg.grd_hw, 3), generator=gen),
+             "sat": torch.randn((b, *cfg.sat_hw, 3), generator=gen),
+             "gt": gt, "bin_weights": weights, "orientation": omap}
+    parts = TLOOP.make_train_step(cfg, matching_impl=matching_impl, remat=remat)(state, batch)
+    return state, parts
+
+
+@pytest.mark.parametrize("remat", [False, "decoder"])
+def test_tiny_train_step_through_the_function_is_the_modules_step(monkeypatch, remat):
+    """With the route let through on the CPU and the launchers plain, a
+    TINY train step sends its 24 decoder convs through ``Conv3x3Function``
+    (24 forward, 24 dgrad, 24 wgrad launches; the forward again where
+    ``remat='decoder'`` recomputes) and gives the modules' step bit for bit:
+    loss parts, every gradient, the updated weights."""
+    calls = []
+    _plain_launchers(monkeypatch, calls)
+    got, got_parts = _tiny_step("kernel", remat)
+    counts = {p: calls.count(p) for p in C.PASSES}
+    assert counts == {"forward": 48 if remat else 24, "dgrad": 24, "wgrad": 24}
+    calls.clear()
+    want, want_parts = _tiny_step("plain", remat)
+    assert calls == []
+    for k, v in want_parts.items():
+        assert torch.equal(got_parts[k], v), k
+    theirs = dict(want.model.named_parameters())
+    for k, p in got.model.named_parameters():
+        q = theirs[k]
+        assert (p.grad is None) == (q.grad is None), k
+        if q.grad is not None:
+            assert torch.equal(p.grad, q.grad), k
+        assert torch.equal(p, q), k
