@@ -18,38 +18,28 @@
 // the card's ratio of f32 FLOP rate to memory rate (about 20), so what
 // matters is to read X once, write each output once, and keep the
 // instructions per element few enough that the FMA pipes are not the limit.
-// Three layouts, chosen by the wrapper from the shape (all compute the same
+// Two layouts, chosen by the wrapper from the shape (both compute the same
 // function in f32, equal to within an ulp per output, K2's tile within a
 // few):
 //
-//   * warp layout (large Cs, few pixel rows: the coarse scales): one block
-//     per (tile of rows, sample b); g_b, zero-padded to Cs and stored twice,
-//     sits in shared memory so that g[(c - k_i) mod Cs] is g2[c - k_i + Cs];
+//   * warp layout (large Cs or few pixel rows: the coarse scales, and rows
+//     that are not whole 16-byte granules): one block per (tile of rows,
+//     sample b); g_b, zero-padded to Cs and stored twice, sits in shared
+//     memory so that g[(c - k_i) mod Cs] is g2[c - k_i + Cs];
 //     one warp per pixel row, lanes striding over the channels (coalesced
 //     loads), `NB` f32 accumulators per lane, warp shuffles to reduce them.
 //     The shuffles cost about 5 * (bins + 1) instructions per row, which
 //     is small beside the row's Cs * bins / 32 FMAs per lane only when Cs is
-//     large.
-//   * row layout (small Cs, many pixel rows: the fine scales): one thread
-//     per pixel row, 128 rows per block.  The block builds the rolled
-//     descriptor matrix W[c][i] = g_b[(c - k_i) mod Cs] (and, masked, the
-//     0/1 window M[c][i]) in shared memory.  Then each warp works alone on
-//     its 32 rows: it stages them in 32-channel chunks with cp.async (each
-//     step a coalesced 128-byte row segment, no registers held while the
-//     copies fly), each lane runs its row's Cs x bins product with float4
-//     broadcast reads of W (no shuffles, no reductions across threads), and
-//     the rows' scores leave through shared memory as one contiguous span.
-//
-// K1 in the warp and row layouts writes xnorm in a second pass over the
-// rows, which were just read, so it hits L2.  It scales by
-// 1 / max(||X||, 1e-12), computed once per row: within an ulp of the
-// division, which would cost several instructions per element.
-//
+//     large.  K1 writes xnorm in a second pass over the rows, which were
+//     just read, so it hits L2.  It scales by 1 / max(||X||, 1e-12),
+//     computed once per row: within an ulp of the division, which would
+//     cost several instructions per element.
 //   * tile layout (the fine scales, and K2 at 320 channels; chosen over
-//     `row` and `warp` where it measured faster): persistent,
-//     double-buffered, one read of x.  K1's (match_tile_kernel) is
-//     bound by bytes like the others; each choice cuts a cost that kept the
-//     row layout from the memory rate:
+//     `warp` where it measured faster): persistent, double-buffered, one
+//     read of x.  K1's (match_tile_kernel) is bound by bytes like the
+//     warp layout; each choice cuts a cost that kept a simpler layout (a
+//     block per 128 rows that built W for itself and staged x in
+//     32-channel chunks) from the memory rate:
 //       - blocks live long: the grid is (blocks resident on the card /
 //         batch) x batch, each block walks the tiles of its sample with a
 //         stride of the grid and builds W and ||g_b|| once, not per 128
@@ -61,9 +51,11 @@
 //         granules, so a warp's per-row 16-byte reads (thread = row) hit
 //         distinct banks (a flat copy gives 2-, 4- and 8-way conflicts at
 //         40, 80 and 160 f32 channels); bf16 is staged raw, 8 a granule;
-//       - arithmetic as in the row layout (thread = row, f32 FMAs against
-//         float4 broadcasts of W), but the scores are scaled by one
-//         reciprocal per row (within an ulp of the division per bin);
+//       - a thread per pixel row runs the row's Cs x bins product in f32
+//         FMAs against float4 broadcast reads of the rolled descriptor
+//         matrix W[c][i] = g_b[(c - k_i) mod Cs] in shared memory (no
+//         shuffles, no reductions across threads), and scales the scores by
+//         one reciprocal per row (within an ulp of the division per bin);
 //       - all three outputs leave from shared memory in 16-byte stores,
 //         xnorm from the staged tile itself: no second read of x.
 //     K2's (match_scores_tile_kernel) shares the ring, the copies and the
@@ -108,9 +100,9 @@
 //   * zero rows: the 1e-12 clamps of the TPU kernel are kept, so a zero row
 //     gives scores 0 and xnorm 0, not NaN;
 //   * centred window (Oxford): the mask (c - k_i) mod Cs < Cg is computed
-//     from k_i (inline in the warp layout, once per block into M in the row
-//     layout); the tile layout's segment table comes from the host by value,
-//     like k_i, and nothing is copied to the device per call;
+//     from k_i (inline in the warp layout); the tile layout's segment table
+//     comes from the host by value, like k_i, and nothing is copied to the
+//     device per call;
 //   * ||g_b||: reduced in the block while g_b is staged.
 //
 // Inputs are f32 or bf16; accumulation is f32; outputs are in x's dtype.
@@ -127,9 +119,6 @@ namespace {
 constexpr int kMaxBins = 32;
 constexpr int kWarps = 8;                 // warp layout: rows in flight per block
 constexpr int kThreads = kWarps * 32;
-constexpr int kRowThreads = 128;          // row layout: pixel rows per block
-constexpr int kChunk = 32;                // row layout: channels staged per pass
-constexpr int kRowMaxSmem = 200 * 1024;   // row layout: dynamic shared memory cap
 constexpr int kUnroll = 8;                // warp layout: loads in flight per lane
 constexpr int kTileMaxRows = 128;         // tile layout: rows per tile = threads per block
 constexpr int kTileStages = 2;            // tile layout: tiles in the shared-memory ring
@@ -270,181 +259,6 @@ match_warp_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restric
       const float inv = 1.f / fmaxf(norm, 1e-12f);
       T* xo = xnorm + row * cs;
       for (int c = lane; c < cs; c += 32) xo[c] = from_f32<T>(to_f32(xr[c]) * inv);
-    }
-  }
-}
-
-// ------------------------------------------------------------ row layout
-
-struct RowSmem {  // float offsets into the dynamic shared memory
-  int w, m, xs, gs, red, total;
-};
-
-__host__ __device__ inline RowSmem row_smem(int cs, int nb, bool masked) {
-  RowSmem s;
-  s.w = 0;                                   // [cs][nb], 16-byte aligned rows
-  s.m = s.w + cs * nb;                       // [cs][nb] if masked
-  s.xs = s.m + (masked ? cs * nb : 0);       // per warp [32][kChunk + 1]: x, then scores
-  s.gs = s.xs + kRowThreads * (kChunk + 1);  // [cs]
-  s.red = s.gs + cs;                         // [kRowThreads / 32]
-  s.total = s.red + kRowThreads / 32;
-  return s;
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const void* src, bool valid) {
-  // 4 bytes global -> shared without a register; zero-filled when !valid
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 4 : 0));
-}
-
-// Stage 32 rows x 32 channels of x (row r at src + r * stride, channel =
-// lane; rows >= nrows and lanes !col_ok read as 0) into xs[r][lane], f32.
-// Each step is one coalesced row segment.  Only this lane's copies are
-// complete on return: the caller syncs the warp.
-template <typename T>
-__device__ __forceinline__ void stage_rows(float* xs, const T* src, int stride, int nrows,
-                                           bool col_ok) {
-  const int lane = threadIdx.x & 31;
-  if constexpr (std::is_same<T, float>::value) {
-#pragma unroll 8
-    for (int r = 0; r < 32; ++r) {
-      const bool ok = col_ok && r < nrows;
-      cp_async4(xs + r * (kChunk + 1) + lane, ok ? src + (size_t)r * stride + lane : src, ok);
-    }
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-  } else {
-#pragma unroll 8
-    for (int r = 0; r < 32; ++r) {
-      const bool ok = col_ok && r < nrows;
-      xs[r * (kChunk + 1) + lane] = ok ? to_f32(src[(size_t)r * stride + lane]) : 0.f;
-    }
-  }
-}
-
-// K1 and K2, one thread per pixel row (same EPI / MASKED meaning as above).
-// After the block has built W (and M), each warp works alone on its 32 rows:
-// lane = row while computing, lane = channel while moving data.
-template <typename T, int NB, bool EPI, bool MASKED>
-__global__ void __launch_bounds__(kRowThreads)
-match_row_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restrict__ scores,
-                 T* __restrict__ smax, T* __restrict__ xnorm, int hw, int cs, int cg,
-                 int bins, BinShifts sh) {
-  extern __shared__ __align__(16) float row_smem_buf[];
-  const RowSmem L = row_smem(cs, NB, MASKED);
-  float* w = row_smem_buf + L.w;
-  float* msk = row_smem_buf + L.m;
-  float* gs = row_smem_buf + L.gs;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-
-  // descriptor (zero-padded to cs) and its norm
-  float ss = 0.f;
-  for (int t = tid; t < cs; t += kRowThreads) {
-    const float v = t < cg ? to_f32(g[(size_t)b * cg + t]) : 0.f;
-    gs[t] = v;
-    ss = fmaf(v, v, ss);
-  }
-  const float gnorm = sqrtf(block_sum<kRowThreads>(ss, row_smem_buf + L.red));
-  // W[c][i] = gp[(c - k_i) mod cs], M[c][i] = [(c - k_i) mod cs < cg]; 0 for i >= bins
-  for (int e = tid; e < cs * NB; e += kRowThreads) {
-    const int c = e / NB, i = e - (e / NB) * NB;
-    float wv = 0.f, mv = 0.f;
-    if (i < bins) {
-      int j = c - sh.k[i];
-      if (j < 0) j += cs;
-      wv = gs[j];
-      mv = j < cg ? 1.f : 0.f;
-    }
-    w[e] = wv;
-    if (MASKED) msk[e] = mv;
-  }
-  __syncthreads();
-
-  const int wrow0 = blockIdx.x * kRowThreads + warp * 32;  // this warp's first row
-  const int nrows = min(32, hw - wrow0);
-  if (nrows <= 0) return;
-  float* xs = row_smem_buf + L.xs + warp * 32 * (kChunk + 1);
-  const size_t wbase = (size_t)b * hw + wrow0;             // its rows are contiguous
-  const T* xw = x + wbase * cs;
-
-  float acc[NB];
-  float sq[MASKED ? NB : 1];
-#pragma unroll
-  for (int i = 0; i < NB; ++i) acc[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < (MASKED ? NB : 1); ++i) sq[i] = 0.f;
-
-  for (int c0 = 0; c0 < cs; c0 += kChunk) {
-    const int ck = min(kChunk, cs - c0);
-    stage_rows(xs, xw + c0, cs, nrows, lane < ck);
-    __syncwarp();
-    const float* xr = xs + lane * (kChunk + 1);
-#pragma unroll 2
-    for (int c = 0; c < ck; ++c) {
-      const float v = xr[c];
-      const float4* wc = reinterpret_cast<const float4*>(w + (c0 + c) * NB);
-#pragma unroll
-      for (int q = 0; q < NB / 4; ++q) {
-        const float4 wq = wc[q];
-        acc[4 * q + 0] = fmaf(v, wq.x, acc[4 * q + 0]);
-        acc[4 * q + 1] = fmaf(v, wq.y, acc[4 * q + 1]);
-        acc[4 * q + 2] = fmaf(v, wq.z, acc[4 * q + 2]);
-        acc[4 * q + 3] = fmaf(v, wq.w, acc[4 * q + 3]);
-      }
-      const float v2 = v * v;
-      if (MASKED) {
-        const float4* mc = reinterpret_cast<const float4*>(msk + (c0 + c) * NB);
-#pragma unroll
-        for (int q = 0; q < NB / 4; ++q) {
-          const float4 mq = mc[q];
-          sq[4 * q + 0] = fmaf(v2, mq.x, sq[4 * q + 0]);
-          sq[4 * q + 1] = fmaf(v2, mq.y, sq[4 * q + 1]);
-          sq[4 * q + 2] = fmaf(v2, mq.z, sq[4 * q + 2]);
-          sq[4 * q + 3] = fmaf(v2, mq.w, sq[4 * q + 3]);
-        }
-      } else {
-        sq[0] += v2;
-      }
-    }
-    __syncwarp();  // xs consumed before the next chunk lands
-  }
-
-  // scores of row `lane` into xs[lane][...]; the warp's rows are one
-  // contiguous span of the output, copied out coalesced
-  const float norm = sqrtf(sq[0]);
-  float m = -__int_as_float(0x7f800000);
-  float* sc = xs;
-  if (lane < nrows) {
-#pragma unroll
-    for (int i = 0; i < NB; ++i) {
-      if (i < bins) {
-        const float den = fmaxf((MASKED ? sqrtf(sq[i]) : norm) * gnorm, 1e-12f);
-        const float s = acc[i] / den;
-        m = fmaxf(m, s);
-        sc[lane * bins + i] = s;
-      }
-    }
-    if (EPI) smax[wbase + lane] = from_f32<T>(m);
-  }
-  __syncwarp();
-  T* sdst = scores + wbase * bins;
-  for (int e = lane; e < nrows * bins; e += 32) sdst[e] = from_f32<T>(sc[e]);
-  if (EPI) {
-    // xnorm: the warp re-stages its rows (from L2) and writes them scaled,
-    // lane = channel; row r's 1 / clamped norm comes from lane r
-    const float inv = 1.f / fmaxf(norm, 1e-12f);
-    T* xo = xnorm + wbase * cs;
-    for (int c0 = 0; c0 < cs; c0 += kChunk) {
-      const int ck = min(kChunk, cs - c0);
-      __syncwarp();  // scores / previous chunk read out
-      stage_rows(xs, xw + c0, cs, nrows, lane < ck);
-      __syncwarp();
-      for (int r = 0; r < 32; ++r) {
-        const float n = __shfl_sync(0xffffffffu, inv, r);
-        if (r < nrows && lane < ck)
-          xo[(size_t)r * cs + c0 + lane] = from_f32<T>(xs[r * (kChunk + 1) + lane] * n);
-      }
     }
   }
 }
@@ -1023,22 +837,6 @@ void launch(const Args& a, int layout) {
     const size_t smem = (2 * (size_t)a.cs + kWarps) * sizeof(float);
     match_warp_kernel<T, NB, EPI, MASKED><<<grid, kThreads, smem, a.st>>>(
         x, g, scores, smax, xnorm, a.hw, a.cs, a.cg, a.bins, a.sh, a.rows_per_block);
-  } else if (layout == 1) {
-    // raise the dynamic shared-memory cap once per device (the attribute
-    // is set for the current device only)
-    constexpr int kMaxDevices = 64;
-    static bool opted_in[kMaxDevices] = {};
-    int dev = 0;
-    cudaGetDevice(&dev);
-    if (dev >= kMaxDevices || !opted_in[dev]) {
-      cudaFuncSetAttribute(match_row_kernel<T, NB, EPI, MASKED>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, kRowMaxSmem);
-      if (dev < kMaxDevices) opted_in[dev] = true;
-    }
-    const dim3 grid((a.hw + kRowThreads - 1) / kRowThreads, a.batch);
-    const size_t smem = row_smem(a.cs, NB, MASKED).total * sizeof(float);
-    match_row_kernel<T, NB, EPI, MASKED><<<grid, kRowThreads, smem, a.st>>>(
-        x, g, scores, smax, xnorm, a.hw, a.cs, a.cg, a.bins, a.sh);
   } else if constexpr (EPI && !MASKED) {
     opt_in_smem<&match_tile_kernel<T, NB>>();
     match_tile_kernel<T, NB><<<dim3(a.tile_grid, a.batch), a.tile_rows, a.tile_smem, a.st>>>(
@@ -1085,12 +883,6 @@ int dispatch(const Args& a, int dtype, int layout) {
 }
 
 }  // namespace
-
-// Shared memory (bytes) that the row layout needs; the wrapper refuses the
-// row layout above kRowMaxSmem.
-extern "C" int ccvpe_match_row_smem_bytes(int cs, int bins, int masked) {
-  return row_smem(cs, pick_nb(bins), masked != 0).total * static_cast<int>(sizeof(float));
-}
 
 // Shared memory (bytes) of the tile layout at `tile_rows` rows a tile; the
 // wrapper computes the same in Python (matching_cuda.tile_smem_bytes).
@@ -1145,7 +937,7 @@ extern "C" int ccvpe_match_scores_tile_blocks_per_sm(int bins, int dtype, int ma
   });
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  layout: 0 = warp, 1 = row, 2 = tile.
+// dtype: 0 = float32, 1 = bfloat16.  layout: 0 = warp, 1 = tile.
 // x [batch, hw, cs] and g [batch, cs] are contiguous; scores [batch, hw,
 // bins], smax [batch, hw], xnorm [batch, hw, cs].  ks holds bins values in
 // [0, cs), 1 <= bins <= 32.  rows_per_block: warp layout only.  tile_rows
@@ -1159,7 +951,8 @@ extern "C" int ccvpe_match_epilogue(const void* x, const void* g, void* scores,
                                     int cs, int bins, const int* ks, int dtype,
                                     int layout, int rows_per_block, int tile_rows,
                                     int tile_grid, int tile_bytes, void* stream) {
-  if (layout == 2) {
+  if (layout < 0 || layout > 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (layout == 1) {
     const int tsize = dtype == 1 ? 2 : 4;
     const bool ok = tile_rows >= 32 && tile_rows <= kTileMaxRows && tile_rows % 32 == 0 &&
                     tile_grid >= 1 && (cs * tsize) % 16 == 0 &&
@@ -1175,7 +968,7 @@ extern "C" int ccvpe_match_epilogue(const void* x, const void* g, void* scores,
 }
 
 // x [batch, hw, cs], g [batch, cg] with cg <= cs, scores [batch, hw, bins].
-// layout: 0 = warp, 1 = row, 2 = tile.  The tile layout takes tile_rows
+// layout: 0 = warp, 1 = tile.  The tile layout takes tile_rows
 // rows a tile (tile_rpt rows per thread, 1 or 2, so tile_rows /
 // tile_rpt threads: a multiple of 32, <= 128), tile_grid blocks per sample,
 // tile_bytes of dynamic shared memory (at least the layout's), tile_stages
@@ -1193,10 +986,10 @@ extern "C" int ccvpe_match_scores(const void* x, const void* g, void* scores, in
                                   const int* prefix, const int* whole, const int* nwhole,
                                   void* stream) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
-  if (layout < 0 || layout > 2) return bad;
+  if (layout < 0 || layout > 1) return bad;
   Args a{x, g, scores, nullptr, nullptr, batch, hw, cs, cg, bins, rows_per_block,
          pack_shifts(ks, bins), static_cast<cudaStream_t>(stream)};
-  if (layout == 2) {
+  if (layout == 1) {
     const int tsize = dtype == 1 ? 2 : 4;
     const int threads = tile_rpt > 0 ? tile_rows / tile_rpt : 0;
     const bool ok = (tile_rpt == 1 || tile_rpt == 2) &&

@@ -12,11 +12,11 @@
 Both are bound by device-memory bytes, not arithmetic: at 20 bins they do
 about 4 FLOP per byte they move.  So the kernels read x once and write each
 output once (the design is in the source note of ``matching.cu``).  Each
-kernel has a warp per pixel row for maps with few rows (the coarse scales,
-wide channels) and a thread per pixel row for maps with many (the fine
-scales, narrow channels).  Both have a third layout for the fine scales,
-``tile``: persistent blocks that copy tiles of rows in 16-byte granules
-through a ring in shared memory and write all outputs from there.  K2's
+kernel has two layouts: ``warp``, a warp per pixel row, for maps with few
+rows or wide channels (the coarse scales) and for rows that are not whole
+16-byte granules; and ``tile`` for the fine scales: persistent blocks that
+copy tiles of rows in 16-byte granules through a ring in shared memory and
+write all outputs from there.  K2's
 tile (also at 320 channels) may give a thread two rows and a ring of one
 stage, and takes its window norms from per-segment sums of x^2: the
 channels between two neighbouring window edges form a segment, and each
@@ -54,24 +54,23 @@ from .matching import bin_shifts, matching_epilogue_plain, matching_scores_plain
 # kernel launches on the CUDA path, by (kernel, layout, dtype); reset with
 # reset_launch_counts
 LAUNCH_COUNTS = {(k, lay, d): 0 for k in ("matching_epilogue", "matching_scores")
-                 for lay in ("warp", "row", "tile") for d in ("float32", "bfloat16")}
+                 for lay in ("warp", "tile") for d in ("float32", "bfloat16")}
 _COUNT_LOCK = threading.Lock()
 _FIELDS = ("layout", "dtype")
 
 MAX_BINS = 32
 MAX_CHANNELS = 4096  # warp layout: 2 * Cs f32 descriptor copies in 48 KB of shared memory
-ROW_LAYOUT_MAX_SMEM = 200 * 1024  # row layout: the kernel's dynamic shared-memory cap
-# The row and tile layouts serve maps of at most this many channels with at
-# least this many pixel rows per SM (enough 128-row blocks to fill the card).
-# On an H100 the row layout beats the warp layout at the VIGOR scales of 40,
-# 80 and 160 channels and loses at 320 and above (chip_smoke.py's
-# kernel_times); both kernels take their tile layout there wherever its plan
-# applies, which measured faster than the row layout at all three
-# (ms_by_layout).
-ROW_LAYOUT_MAX_CHANNELS = 160
-ROW_LAYOUT_MIN_ROWS_PER_SM = 32
+# A map takes the tile layout only with at least TILE_MIN_ROWS_PER_SM pixel
+# rows per SM (enough 128-row blocks to fill the card), and K1's tile only up
+# to K1_TILE_MAX_CHANNELS.  On an H100 a thread per pixel row beat the warp
+# layout at the VIGOR scales of 40, 80 and 160 channels and lost at 320, and
+# K1's tile beat that thread-per-row layout at all three; K2's tile also beat
+# the warp layout at 320 (the layout timings recorded in CHANGES.md and
+# PERF.md).
+K1_TILE_MAX_CHANNELS = 160
+TILE_MIN_ROWS_PER_SM = 32
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_LAYOUTS = {"warp": 0, "row": 1, "tile": 2}
+_LAYOUTS = {"warp": 0, "tile": 1}
 _KERNELS = ("matching_epilogue", "matching_scores")
 
 # Tile layout: these constants are the kernel's (matching.cu).
@@ -82,11 +81,11 @@ TILE_STAGES = 2                # K1: tiles in the shared-memory ring
 TILE_MAX_BLOCKS_PER_SM = 4     # __launch_bounds__ minimum: registers allow this many
 # K2's tile plans as (threads, rows per thread, stages), in the order the
 # plan tries them (the first whose shared memory fits one block).  From
-# times on an H100 at the VIGOR scales K2's tile takes (chip_smoke.py's
-# ms_by_tile_plan): two rows per thread, 64 threads and one stage where a
-# row is at most K2_TILE_NARROW bytes; else a row per thread, 128 threads
-# and two stages where they fit.  __launch_bounds__ guarantees 4 blocks of
-# 128 threads at one row per thread and 2 at two.
+# times on an H100 at the VIGOR scales K2's tile takes (the plan timings
+# recorded in CHANGES.md and PERF.md): two rows per thread, 64 threads and
+# one stage where a row is at most K2_TILE_NARROW bytes; else a row per
+# thread, 128 threads and two stages where they fit.  __launch_bounds__
+# guarantees 4 blocks of 128 threads at one row per thread and 2 at two.
 K2_TILE_NARROW = 320
 K2_TILE_PLANS_NARROW = ((64, 2, 1),)
 K2_TILE_PLANS = ((128, 1, 2), (128, 1, 1), (64, 1, 2), (64, 1, 1), (32, 1, 2), (32, 1, 1))
@@ -171,8 +170,6 @@ def _kernels() -> ctypes.CDLL:
     lib.ccvpe_match_scores.argtypes = [p, p, p, i, i, i, i, i, p, i, i, i, i, i, i, i, i,
                                        i, p, i, p, p, p, p, p]
     lib.ccvpe_match_scores.restype = i
-    lib.ccvpe_match_row_smem_bytes.argtypes = [i, i, i]
-    lib.ccvpe_match_row_smem_bytes.restype = i
     lib.ccvpe_match_tile_smem_bytes.argtypes = [i, i, i, i]
     lib.ccvpe_match_tile_smem_bytes.restype = i
     lib.ccvpe_match_tile_blocks_per_sm.argtypes = [i, i, i, i, i]
@@ -228,19 +225,6 @@ def _rows_per_block(shape, sms: int) -> int:
 def _nb(bins: int) -> int:
     """Bins padded to a multiple of 4 (the kernels' float4 reads of W)."""
     return -(-bins // 4) * 4
-
-
-def row_smem_bytes(cs: int, cg: int, bins: int) -> int:
-    """Shared memory of the row layout (matching.cu's ``row_smem``): W, the
-    mask where Cg < Cs, 128 staged rows of 33 floats, g and 4 partial sums."""
-    nb = _nb(bins)
-    return 4 * (cs * nb * (2 if cg < cs else 1) + 128 * 33 + cs + 4)
-
-
-def row_layout_fits(cs: int, cg: int, bins: int) -> bool:
-    """Whether the row layout's W (and, for Cg < Cs, its mask) fit its
-    shared memory."""
-    return row_smem_bytes(cs, cg, bins) <= ROW_LAYOUT_MAX_SMEM
 
 
 def _round16(n: int) -> int:
@@ -385,22 +369,19 @@ def _k2_tile_plan(shape, bins: int, itemsize: int, limits: DeviceLimits,
 def choose_layout(kernel: str, shape, cg: int, bins: int, dtype: torch.dtype,
                   limits: DeviceLimits = H100, nseg: int | None = None) -> str:
     """The layout ``pick_layout`` takes, as a pure function of the call:
-    a warp per row for maps with few rows or wide channels (K1: over 160,
-    K2: over 320); else the tile layout where its plan applies (K2: with
-    ``nseg`` window segments, or as many as ``bins`` windows can make), and
-    otherwise, up to 160 channels, the row layout where its W (and mask)
-    fit."""
+    the tile layout for maps with many rows and narrow channels (K1: up to
+    160, K2: up to 320) where its plan applies (K2: with ``nseg`` window
+    segments, or as many as ``bins`` windows can make); else a warp per
+    row."""
     if kernel not in _KERNELS:
         raise ValueError(f"kernel must be one of {_KERNELS}, got {kernel!r}")
     b, h, w, cs = shape
-    many = b * h * w >= ROW_LAYOUT_MIN_ROWS_PER_SM * limits.sms
-    widest = K2_TILE_MAX_CHANNELS if kernel == "matching_scores" else ROW_LAYOUT_MAX_CHANNELS
+    many = b * h * w >= TILE_MIN_ROWS_PER_SM * limits.sms
+    widest = K2_TILE_MAX_CHANNELS if kernel == "matching_scores" else K1_TILE_MAX_CHANNELS
     if not many or cs > widest:
         return "warp"
     nseg = max_segments(cs, cg, bins) if nseg is None else nseg
-    if tile_plan(shape, bins, dtype, limits, kernel, nseg) is not None:
-        return "tile"
-    return "row" if cs <= ROW_LAYOUT_MAX_CHANNELS and row_layout_fits(cs, cg, bins) else "warp"
+    return "tile" if tile_plan(shape, bins, dtype, limits, kernel, nseg) is not None else "warp"
 
 
 def pick_layout(kernel: str, x: torch.Tensor, cg: int, bins: int) -> str:
@@ -412,16 +393,13 @@ def pick_layout(kernel: str, x: torch.Tensor, cg: int, bins: int) -> str:
 
 def _layout(kernel: str, shape, cg: int, bins: int, dtype, layout: str | None,
             limits: DeviceLimits, nseg: int = 1) -> str:
-    """``layout`` None picks as ``pick_layout`` says; 'warp', 'row' or 'tile'
-    forces one, and raises where it does not apply."""
+    """``layout`` None picks as ``pick_layout`` says; 'warp' or 'tile' forces
+    one, and raises where it does not apply."""
     if layout is None:
         return choose_layout(kernel, shape, cg, bins, dtype, limits, nseg)
     cs = shape[-1]
     if layout not in _LAYOUTS:
-        raise ValueError(f"{kernel} takes layout 'warp', 'row' or 'tile', got {layout!r}")
-    if layout == "row" and not row_layout_fits(cs, cg, bins):
-        raise ValueError(f"the row layout's shared memory does not fit Cs={cs}, "
-                         f"{bins} bins{' (masked)' if cg < cs else ''}")
+        raise ValueError(f"{kernel} takes layout 'warp' or 'tile', got {layout!r}")
     if layout == "tile" and tile_plan(shape, bins, dtype, limits, kernel, nseg) is None:
         raise ValueError(f"the tile layout does not take Cs={cs} in {dtype}: a row must "
                          f"be whole {GRANULE}-byte granules and its tiles must fit "

@@ -1,56 +1,56 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port (``ccvpe_torch``) on one NVIDIA GPU.
+"""Card gate of the PyTorch port (``ccvpe_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out DIR]
 
-Phases, each printing one JSON line:
+Every phase runs the port on the card and checks it: against the plain
+PyTorch versions of the kernels, against the CPU, against itself (a resume,
+a replayed graph, an export), and by launch counts.  It times nothing: the
+port is measured by ``portbench/``.  Phases, each printing one JSON line:
 
 1. device:  the card's name and power limit (``nvidia-smi``), torch and CUDA.
 2. build:   ``nvcc`` builds the matching and the conv kernels from
    ``ccvpe_torch/csrc``.
-3. kernels: each kernel, in every layout that takes the shape (warp, row,
-   tile), against its plain PyTorch version on the card, at the VIGOR shapes
+3. kernels: each kernel, in every layout that takes the shape (warp, tile),
+   against its plain PyTorch version on the card, at the VIGOR shapes
    (batch 8; K2 with the fov=180 masked window), the ori-prior bottleneck,
    the Oxford and KITTI masked windows at coarse and fine scales and ragged
    maps (the tile layouts also at batch 3, 41x41 and 66x66, 5 and 21 bins),
    with a zero row and, for a masked window, a row that is zero inside one
-   bin's window only, in float32 and bfloat16; then times of each layout,
-   the plain version and ``torch.bmm`` (a yardstick only) beside the least
-   time the card could take; then both kernels in bfloat16 at the VIGOR,
-   KITTI and Oxford shapes of the bfloat16 paths (bound at 2 bytes per
-   element and the tensor cores' bfloat16 rate, ``torch.bmm`` in bfloat16
-   beside it), each timed shape also checked against the plain version.
+   bin's window only, in float32 and bfloat16; both replayed from a CUDA
+   graph; then the layout each wrapper picks by itself at the main path's
+   shapes (float32 at VIGOR's six scales, the bottleneck and the fov=180
+   windows; bfloat16 at the VIGOR, KITTI and Oxford shapes of the bfloat16
+   paths) against the plain version.
    conv:    the decoders' 3x3 conv kernel (``ops.conv_cuda``,
    ``csrc/conv3x3.cu``) at every decoder shape of VIGOR, KITTI and Oxford
    at batch 8 against a float64 conv (1e-5 of the output's largest
-   magnitude, the card tests' bar); the device ms of each VIGOR and KITTI
-   shape beside cuDNN's heuristic and searched algorithms and the bound;
-   and at each VIGOR and KITTI shape the backward's dgrad and wgrad (with
-   the bias gradient) against float64 ``conv2d_input``/``conv2d_weight``,
-   timed beside cuDNN's heuristic (``convolution_backward``) and the bound.
+   magnitude, the card tests' bar); at each VIGOR and KITTI shape the
+   backward's dgrad and wgrad (with the bias gradient) against float64
+   ``conv2d_input``/``conv2d_weight``; the split-K and the direct kernel
+   replayed from a CUDA graph.
 4. model:   ``ccvpe_torch.api.load_model(preset="VIGOR", seed=0)`` on the
    card; ``predict_batch`` at batch 8 with ``ori_noise`` 180 and 36 and with
    ``fov=180``, counting 24 decoder conv launches in each and kernel
    launches by kernel and by layout (K1: tile
    at the three fine scales; K2 at fov=180: tile at four, warp at two), held
    against the same model with ``matching_impl="plain"`` (the plain
-   matching and the conv modules); and a
+   matching and the conv modules); replayed calls without the heatmap,
+   cuDNN's TF32 off and on, launching 24 convs, 6 K1 and no K2 a call; and a
    NANO model on the card held against the same model on the CPU.
    model_presets: the KITTI (16 bins, 2048-d descriptor; with and without
    a +-2-bin prior) and Oxford RobotCar (4x7 ground grid, centred window)
    presets at full width, batch 8, through the kernels against the plain
    versions (the same pose per sample), launches per kernel and layout,
-   and each kernel timed at each of the preset's shapes.
+   and each kernel at each of the preset's shapes against its plain version.
 5. train:   the VIGOR train step (``ccvpe_torch.train.loop``) at batch 8 in
    float32, TF32 off, on seeded weights with calibrated BN statistics and
    GT synthesized on the card: (a) one step through K1 against the same
    step through the plain versions (loss parts, every gradient, the new BN
-   statistics; 6 K1 launches, 3 tile and 3 warp); (b) 2 warm-up and 5 timed
-   steps with drop-connect (finite losses, everything moved, samples/s,
-   peak memory, 24 forward, 24 dgrad and 24 wgrad launches of the decoder
-   conv kernels a step); (c) one NANO step on the card against the CPU; (d) the
-   device time of one step by part (forward, matching backward, rest of
-   the backward, optimizer) and by kernel (``torch.profiler``).
+   statistics; 6 K1 launches, 3 tile and 3 warp); (b) seven steps with
+   drop-connect (finite losses, everything moved, peak memory, 24 forward,
+   24 dgrad and 24 wgrad launches of the decoder conv kernels a step);
+   (c) one NANO step on the card against the CPU.
    train_options: the training options on the same VIGOR step (batch 8,
    TF32 off): (a) one bfloat16 step through K1 against the same step
    through the plain versions, cuDNN deterministic, every loss part,
@@ -61,25 +61,25 @@ Phases, each printing one JSON line:
    parts 1e-6, gradients, BN, the generator's end state); (c) three steps
    of bfloat16 parameters with the float32 master (each resident
    parameter ``bf16(p + (m - p))`` as optax leaves it; the elements off
-   the rounded master counted); (d) step ms and peak memory of float32,
-   bfloat16, bfloat16 with bfloat16 parameters and each remat scope.
+   the rounded master counted); (d) finite losses and peak memory of
+   float32, bfloat16, bfloat16 with bfloat16 parameters and each remat
+   scope over four steps.
    data:    the input pipeline on synthetic dataset roots written from
    seeds (``write_roots``; VIGOR's cross-area train split: 48 2048x1024 JPEG
    panoramas and 640x640 PNG tiles over two cities): ``VigorIndex`` ->
    ``VigorSampler`` -> ``Loader`` (8 threads) -> ``device_prefetch`` ->
    ``vigor.device_batch`` on the card ->
-   ``make_train_step`` for one epoch of six steps; the loader's batches/s
-   alone, the fed step against a resident batch's, the card's idle share
-   over each (``torch.profiler``), the host-to-device bytes per batch; one
-   batch on the card against the CPU, the prefetched batch against the
-   synchronous one; one KITTI batch through the alignment chain on the card
-   against the CPU; one Oxford batch; the native decoder's batch path when
-   it builds (else its build error).
+   ``make_train_step`` for one epoch of six steps (finite losses, K1
+   launches); the host-to-device bytes per batch; one batch on the card
+   against the CPU, the prefetched batch against the synchronous one; one
+   KITTI batch through the alignment chain on the card against the CPU; one
+   Oxford batch; the native decoder's batch path against PIL's when it
+   builds (else its build error).
    cli:     the port's CLIs through ``main([...])`` on those roots, full
    width, batch 8, float32: ``ccvpe_torch.train_VIGOR`` trains an epoch of
-   3 steps (validation included), checkpoints (bytes, save ms, the sidecar),
-   resumes a second epoch with the restored model and Adam state checked bit
-   for bit against the file (restore ms), writes the reference's results
+   3 steps (validation included), checkpoints (bytes, the sidecar), resumes
+   a second epoch with the restored model and Adam state checked bit for
+   bit against the file, writes the reference's results
    files; its model, saved with ``CVMModel.save_torch``, evaluates at
    ``--ori_noise 180`` (the shipped frozen orientations), ``36`` and ``-f 180
    --ori_noise 0``; ``train_KITTI`` (``--device_augment``) and
@@ -87,8 +87,7 @@ Phases, each printing one JSON line:
    Oxford's three traversals).  Every eval runs through the kernels and
    again through the plain versions: the same pixel for every sample, equal
    distances, prob_at_gt within 1e-6, heading within 0.1 degree; launches
-   by layout, train and eval pairs/s, and the card's idle share over one
-   eval pass (``torch.profiler``).  Then the training options:
+   by layout.  Then the training options:
    ``train_VIGOR --bf16 --bf16_params --remat --pretrained_b0`` (a B0 file
    written from the port's seeded encoder) trains 2 steps, checkpoints and
    resumes bit for bit (the float32 master included); ``api.load_model`` of
@@ -97,34 +96,28 @@ Phases, each printing one JSON line:
    ``train_OxfordRobotCar --bf16`` train 2 steps each (K2, and KITTI's K1
    at 256^2 x 32, in bfloat16 inside a model): finite losses, the exact
    bfloat16 launches by kernel and layout of their train steps, peak memory.
-6. timing:  steady-state ``predict_batch`` pairs/s at batch 8 in float32,
-   and the device time by kernel of three calls (``torch.profiler``).
-7. serve:   ``ccvpe_torch.serve`` on 127.0.0.1 with the ``model`` phase's
+6. serve:   ``ccvpe_torch.serve`` on 127.0.0.1 with the ``model`` phase's
    VIGOR model at batch 8, ``max_wait_ms`` 5: 96 ``/predict`` requests from
    16 client threads over the keys (180, 360), (36, 360) and (180, 180),
    PNGs at model size and three at a raw size; every answer against
    ``predict_batch`` through the plain versions (the same pixel, heading
-   0.1 degree, probability 1e-6); a 413 and a 408; requests/s, latency,
-   dispatches and batch fill, 503s, K1/K2 launches, and the card's idle
-   share under the same load (``torch.profiler``).
-8. quant:   int8 post-training quantization of a copy of the ``model``
+   0.1 degree, probability 1e-6); a 413 and a 408; dispatches and batch
+   fill, 503s, K1/K2 launches.
+7. quant:   int8 post-training quantization of a copy of the ``model``
    phase's VIGOR model (``CVMModel.quantize_int8`` on a seeded batch of two
-   pairs; seconds), batch 8: what ``torch._int_mm`` refuses on this card;
+   pairs), batch 8: what ``torch._int_mm`` refuses on this card;
    every int8 conv shape's int32 sums (``torch._int_mm`` over the int8
    im2col) against the plain version (a float64 conv), exactly;
    ``predict_batch`` at the serve keys through K1/K2 against the plain
    matching (the same pixel per sample, the ``model`` phase's heatmap and
    heading gates, the other outputs within ``QUANT_FLIP_SHARE`` of the int8
-   model's distance from float32; K1/K2 launches and int8 products counted from 0 at each key); the int8
-   readout's distance from the float32 model's (not gated); int8 against
-   float32 pairs/s in turns with TF32 off and on; peak memory; device ms by
-   part (int8 products, the int8 conv's other passes, K1+K2, the rest) of
-   both models;
+   model's distance from float32; K1/K2 launches and int8 products counted
+   from 0 at each key); the int8 readout's distance from the float32
+   model's (not gated); peak memory of both models;
    ``python -m ccvpe_torch.serve --quantize int8 --calib_dir`` (through
    ``serve.main`` on the same weights) answering 48 requests, each equal to
-   the served model's own ``predict_batch``; requests/s.
-
-9. parallel (after ``cli``): multi-device training and serving on the one
+   the served model's own ``predict_batch``.
+8. parallel (after ``cli``): multi-device training and serving on the one
    card.  (a) Two spawned ranks join a gloo group through
    ``parallel.mesh.maybe_init_distributed`` and share the H100 (NCCL
    refuses two ranks on one GPU): VIGOR at full width, global batch 8 (4 a
@@ -134,8 +127,8 @@ Phases, each printing one JSON line:
    gradient after DDP's reduction 1e-3·‖g‖ + 1e-6·grad_norm, BN statistics
    1e-5; the second step's loss parts 1e-4, ``LATER_STEP_RTOL``; ZeRO-1's
    parameters to DDP's within 1e-6 relative), K1 launched per forward as
-   the one-process forward launches it; step ms, peak GiB and bytes
-   all-reduced per rank, labelled as two ranks sharing one card; (b)
+   the one-process forward launches it; peak GiB and bytes all-reduced per
+   rank, labelled as two ranks sharing one card; (b)
    ``n_model=2`` (FSDP2 over gloo) on the same ranks, held the same way;
    (c) ``Trainer``'s two steps under a one-rank NCCL group against the same
    steps without a group, bit for bit (cuDNN deterministic); (d)
@@ -143,7 +136,7 @@ Phases, each printing one JSON line:
    one-device model (the same pixel, heatmap 1e-7, heading 0.1°), a batch
    of one on the first replica alone, and ``serve --mesh data`` answering
    as ``predict_batch``.
-10. visualize (after ``cli``, on the same roots): ``python -m
+9. visualize (after ``cli``, on the same roots): ``python -m
    ccvpe_torch.visualize``'s forward, ``predict_sample``, at full width:
    VIGOR (the ``model`` phase's model) at ``--ori_noise 180`` (the shipped
    frozen orientations) and ``36``, one KITTI and one Oxford sample; each
@@ -151,28 +144,26 @@ Phases, each printing one JSON line:
    ``loc_pred``/``loc_gt`` and GT, heatmap 1e-7, orientation 1e-3), K1/K2
    launches by kernel and layout.  ``render`` is not run on the card (its
    machine has no matplotlib); it is tested on the CPU.
-11. export (after ``quant``): ``api.export_model`` of the ``model`` phase's
+10. export (after ``quant``): ``api.export_model`` of the ``model`` phase's
    VIGOR model at batch 8 and at ``batch="dynamic"`` (served at 8 and 3)
    and of the ``quant`` phase's int8 model at batch 8, reloaded with
    ``api.load_exported``: each answer equal to the same model's
    ``predict_batch`` through the plain matching exactly (the export traces
    the plain matching by design: no K1/K2 launch) and to the kernel path's
-   at the ``model`` phase's gates; export seconds, exported against
-   ``predict_batch`` pairs/s.
-12. backbones: ``EfficientNet("b1")`` ... ``("b7")`` at their own
+   at the ``model`` phase's gates.
+11. backbones: ``EfficientNet("b1")`` ... ``("b7")`` at their own
    resolutions, batch 2, float32, TF32 off, BN calibrated on that batch,
-   against the CPU at batch 1 (``phase_backbones``); ms per forward, peak
-   GiB.
+   against the CPU at batch 1 (``phase_backbones``).
 
-The ``timing`` and ``train`` phases' kernel lists come from
-``ccvpe_torch.utils.trace_analysis`` (``profile_durations``, ``summarize``).
+Then the ``kernels`` summary line (each kernel's checks and its launches
+on each main path, counted from 0 just before that path ran; a kernel that
+a main path did not launch fails the run), the raw ``nvidia-smi`` line
+and, last, ``{"ok": true, "device": {...}}``.  Any failure raises: the
+script then exits non-zero and prints no result line.  It needs one CUDA
+device and ``nvcc``.
 
-Then the ``kernels`` summary line, the raw ``nvidia-smi`` line and, last,
-``{"ok": true, "device": {...}}``.  Any failure raises: the script then exits
-non-zero and prints no result line.  It needs one CUDA device and ``nvcc``.
-
-``--out DIR`` also writes the ptxas report, every number of the run and the
-profiler's table and trace to ``DIR``.
+``--out DIR`` also writes the ptxas report and every check of the run
+(``chip_smoke.json``) to ``DIR``.
 """
 
 from __future__ import annotations
@@ -206,18 +197,10 @@ from ccvpe_torch.ops import gt as GT
 from ccvpe_torch.ops import matching as TM
 from ccvpe_torch.ops import matching_cuda as MC
 from ccvpe_torch.train import loop as TLOOP
-from ccvpe_torch.utils import trace_analysis as TA
 from tests.torch_conv_shapes import decoder_conv_shapes
 
 DEADLINE_S = 1100   # the whole run, build included, must end well inside 1200 s
 BATCH = 8
-
-# Published peaks (NVIDIA data sheets, dense, at the full power limit):
-# device-memory bytes/s, float32 FLOP/s outside the tensor cores, and
-# bfloat16 FLOP/s on the tensor cores (products of bfloat16 inputs summed in
-# float32, as both kernels compute them).
-PEAKS = {"H100 SXM": (3.35e12, 67e12, 989e12), "H100 PCIe": (2.0e12, 51e12, 756e12),
-         "H100 NVL": (3.9e12, 60e12, 835e12)}
 
 F32_TOL = dict(atol=1e-5, rtol=1e-5)
 # bf16: the kernel accumulates the bf16 inputs in f32 exactly as the f32 plain
@@ -240,57 +223,6 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def peaks_for(name: str) -> tuple[str, float, float, float]:
-    part = "H100 PCIe" if "PCIe" in name else "H100 NVL" if "NVL" in name else "H100 SXM"
-    return (part, *PEAKS[part])
-
-
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after ``warmup`` calls
-    (host time to issue the call included)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
-def device_ms(fn, reps: int = 20) -> float:
-    """Device time of one call of ``fn``: ``reps`` calls captured in a CUDA
-    graph, the graph replayed between two CUDA events, divided by ``reps``;
-    the median of five replays.  Unlike ``time_ms`` it leaves out the host's
-    time to issue each call."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(5):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / reps)
-    del graph
-    return statistics.median(times)
-
-
 # ---------------------------------------------------------------- phases
 
 
@@ -298,14 +230,10 @@ def phase_device() -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
-    name = torch.cuda.get_device_name(0)
-    part, bw, f32, bf16 = peaks_for(name)
-    info = {"phase": "device", "nvidia_smi": smi, "name": name,
+    info = {"phase": "device", "nvidia_smi": smi, "name": torch.cuda.get_device_name(0),
             "power_limit": smi.split(",")[-1].strip(), "count": torch.cuda.device_count(),
             "torch": torch.__version__, "cuda": torch.version.cuda,
-            "sms": torch.cuda.get_device_properties(0).multi_processor_count,
-            "peaks_of": part, "peak_bytes_per_s": bw, "peak_f32_flops": f32,
-            "peak_bf16_flops": bf16}
+            "sms": torch.cuda.get_device_properties(0).multi_processor_count}
     emit(info)
     return info
 
@@ -356,105 +284,36 @@ def _layouts(kernel, shape, cg, bins, dtype) -> list[str]:
     cs = shape[-1]
     tile = MC.tile_plan(shape, bins, dtype, kernel=KERNEL_NAMES[kernel],
                         nseg=MC.max_segments(cs, cg, bins))
-    return (["warp"] + (["row"] if MC.row_layout_fits(cs, cg, bins) else [])
-            + (["tile"] if tile else []))
+    return ["warp", "tile"] if tile else ["warp"]
 
 
-def _tile_plan_times(x, g, shift) -> dict:
-    """Device ms of K2's tile layout at each plan it can take (threads, rows
-    per thread, stages), each forced in turn; the plan the wrapper takes by
-    itself is the first of its lists that fits."""
-    lists = MC.K2_TILE_PLANS_NARROW, MC.K2_TILE_PLANS
-    times = {}
-    try:
-        for threads, rpt, stages in lists[0] + lists[1]:
-            MC.K2_TILE_PLANS_NARROW, MC.K2_TILE_PLANS = (), ((threads, rpt, stages),)
-            MC._plan.cache_clear()
-            try:
-                plan = MC._plan("matching_scores", tuple(x.shape), x.dtype, g.shape[1], shift,
-                                tuple(range(20)), "first", "tile", x.device.index or 0).tile
-            except ValueError:   # does not fit one block's shared memory
-                continue
-            times[f"t{threads} r{rpt} s{stages} b{plan.blocks_per_sm}"] = device_ms(
-                lambda: MC.launch_matching_scores(x, g, shift, tuple(range(20)), "first", "tile"))
-    finally:
-        MC.K2_TILE_PLANS_NARROW, MC.K2_TILE_PLANS = lists
-        MC._plan.cache_clear()
-    return times
-
-
-def _bound(nbytes: float, flops: float, dev: dict, dtype: str = "float32") -> tuple[float, str]:
-    """The least ms for the work: bytes over the memory rate, or operations
-    over the peak rate for ``dtype``'s products, whichever is larger."""
-    peak = dev["peak_bf16_flops"] if dtype == "bfloat16" else dev["peak_f32_flops"]
-    t_bytes, t_ops = nbytes / dev["peak_bytes_per_s"], flops / peak
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
-
-
-def _time_matching(kernel, b, hw, cs, cg, shift, offsets, window, dev: dict, seed,
-                   dtype=torch.float32) -> dict:
-    """Device ms of ``kernel`` ('K1' or 'K2') in the layout the wrapper
-    picks and in every layout that takes the shape, of its plain version and
-    of ``torch.bmm`` in ``dtype`` (the product alone, a yardstick), beside
-    the bound (bytes at ``dtype``'s size, operations at its peak rate); and
-    the picked layout's outputs held against the plain version in float32
-    on the same inputs (``max_abs_err``)."""
+def _check_matching(kernel, b, hw, cs, cg, shift, offsets, window, seed,
+                    dtype=torch.float32) -> dict:
+    """``kernel`` ('K1' or 'K2') in the layout its wrapper picks by itself,
+    held against the plain version in float32 on the same inputs."""
     x, g = _inputs(b, hw, cs, cg, seed, dtype)
     offsets = tuple(offsets)
-    bins = len(offsets)
-    pixels = b * hw[0] * hw[1]
-    ks = TM.bin_shifts(cs, cg, shift, offsets, window)
-    banded = TM._banded(g, cs, ks).to(dtype)            # [B, Cs, bins]
-    x3 = x.view(b, -1, cs)
+    layout = MC.pick_layout(KERNEL_NAMES[kernel], x, cg, len(offsets))
     if kernel == "K1":
-        def k_fn(layout=None):
-            return MC.launch_matching_epilogue(x, g, shift, offsets, window, layout)
-        p_fn = lambda: TM.matching_epilogue_plain(x, g, shift, offsets, window)
-        out_elems = pixels * (cs + bins + 1)              # xnorm, scores, smax
-        flops = pixels * cs * (2 * bins + 3)              # products, squares, divide
+        got = MC.launch_matching_epilogue(x, g, shift, offsets, window)
+        want = TM.matching_epilogue_plain(x.float(), g.float(), shift, offsets, window)
     else:
-        def k_fn(layout=None):
-            return MC.launch_matching_scores(x, g, shift, offsets, window, layout)
-        p_fn = lambda: TM.matching_scores_plain(x, g, shift, offsets, window)
-        out_elems = pixels * bins
-        # products; squares; masked: a window product per bin
-        flops = pixels * cs * (2 * bins + (2 * bins if cg < cs else 2))
-    nbytes = x.element_size() * (x.numel() + g.numel() + out_elems)
-    bound, by = _bound(nbytes, flops, dev, str(dtype)[6:])
-    layout = MC.pick_layout(KERNEL_NAMES[kernel], x, cg, bins)
-    plain = (TM.matching_epilogue_plain if kernel == "K1" else TM.matching_scores_plain)(
-        x.float(), g.float(), shift, offsets, window)
-    got = k_fn()
+        got = (MC.launch_matching_scores(x, g, shift, offsets, window),)
+        want = (TM.matching_scores_plain(x.float(), g.float(), shift, offsets, window),)
     torch.cuda.synchronize()
-    err = _check(f"{kernel} {layout} x{[b, *hw, cs]} g{[b, cg]} {str(dtype)[6:]} (timed shape)",
-                 got if kernel == "K1" else (got,), plain if kernel == "K1" else (plain,), dtype)
-    by_layout = {lay: device_ms(lambda lay=lay: k_fn(lay))
-                 for lay in _layouts(kernel, x.shape, cg, bins, x.dtype)}
-    row = {"kernel": kernel, "dtype": str(dtype)[6:], "x": [b, *hw, cs], "g": [b, cg],
-           "bins": bins, "shift": shift,
-           "window": window, "layout": layout, "ms": by_layout[layout],
-           "ms_by_layout": by_layout, "eager_ms": time_ms(k_fn), "plain_ms": device_ms(p_fn),
-           "library_ms": device_ms(lambda: torch.bmm(x3, banded)),
-           "bound_ms": bound, "bound_by": by, "bytes": nbytes, "flops": flops,
-           "max_abs_err": err}
-    row["achieved_bytes_per_s"] = nbytes / (row["ms"] * 1e-3)
-    return row
+    err = _check(f"{kernel} {layout} x{[b, *hw, cs]} g{[b, cg]} {str(dtype)[6:]} (main path)",
+                 got, want, dtype)
+    return {"kernel": kernel, "dtype": str(dtype)[6:], "x": [b, *hw, cs], "g": [b, cg],
+            "bins": len(offsets), "shift": shift, "window": window, "layout": layout,
+            "max_abs_err": err}
 
 
-def _summary(name, rows, replaces, dev: dict) -> dict:
-    """One kernel row of the ``kernels`` line: the sums over ``rows`` (all
-    of one dtype), and the largest error of their checks at these shapes."""
-    total = {k: sum(r[k] for r in rows) for k in
-             ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops")}
-    dtype = rows[0]["dtype"]
+def _summary(name, rows, replaces) -> dict:
+    """One kernel row of the ``kernels`` line: the largest error of its
+    checks at the shapes of ``rows`` (all of one dtype) and their layouts."""
     return {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-            "dtype": dtype, "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": total["ms"], "kernel_ms": total["ms"], "eager_ms": total["eager_ms"],
-            "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
-            "bound_by": _bound(total["bytes"], total["flops"], dev, dtype)[1],
-            "library_ms": total["library_ms"],
-            "timed_at": "sum over x " + ", ".join(str(r["x"]) for r in rows),
-            "layouts": [r["layout"] for r in rows]}
+            "dtype": rows[0]["dtype"], "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "checked_at": [r["x"] for r in rows], "layouts": [r["layout"] for r in rows]}
 
 
 def _replay_check(tag: str, fn, launches, replays: int = 3) -> dict:
@@ -489,7 +348,7 @@ def _replay_check(tag: str, fn, launches, replays: int = 3) -> dict:
             "launches_counted": counted}
 
 
-def phase_kernels(dev: dict) -> dict:
+def phase_kernels() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     checks = []
@@ -560,64 +419,49 @@ def phase_kernels(dev: dict) -> dict:
         _replay_check("K2 tile 32x32x320 masked", lambda: MC.launch_matching_scores(
             xs, gs, 16, tuple(range(20)), "first"), lambda: sum(MC.launch_counts().values()))]
     del x, g, xs, gs
-    emit({"phase": "kernel_checks", "n": len(checks),
-          "tolerance": {"float32": F32_TOL, "bfloat16": BF16_TOL},
-          "max_abs_err": {f"{k} {str(d)[6:]}": v for (k, d), v in max_err.items()},
-          "graph_replays": graph_replays})
 
-    # times at the main path's shapes: float32, batch 8, 20 bins
-    shapes = []
-
-    def timed(kernel, hw, cs, cg, shift, seed):
-        row = _time_matching(kernel, BATCH, hw, cs, cg, shift, range(20), "first", dev, seed)
-        if kernel == "K2" and "tile" in row["ms_by_layout"]:
-            x, g = _inputs(BATCH, hw, cs, cg, seed, torch.float32)
-            row["ms_by_tile_plan"] = _tile_plan_times(x, g, shift)
-        shapes.append(row)
-        return row
-
-    k1 = [timed("K1", (s, s), cs, cs, shift, 20 + i)
+    # the layout each wrapper picks at the main path's shapes: float32,
+    # batch 8, 20 bins
+    k1 = [_check_matching("K1", BATCH, (s, s), cs, cs, shift, range(20), "first", 20 + i)
           for i, (s, cs, shift) in enumerate(VIGOR_SCALES)]
-    k2 = [timed("K2", (8, 8), 1280, 1280, 64, 30)]
+    k2 = [_check_matching("K2", BATCH, (8, 8), 1280, 1280, 64, range(20), "first", 30)]
     # the limited-fov setting: K2 with the masked window at every scale
-    k2_fov = [timed("K2", (s, s), cs, cs // 2, shift, 40 + i)
+    k2_fov = [_check_matching("K2", BATCH, (s, s), cs, cs // 2, shift, range(20), "first", 40 + i)
               for i, (s, cs, shift) in enumerate(VIGOR_SCALES)]
     # bfloat16 at the shapes of the bf16 main paths (train_options, cli):
     # VIGOR's six K1 scales; KITTI's and Oxford's scales (K1 where Cg == Cs)
-    bf16 = {"VIGOR": [_time_matching("K1", BATCH, (s, s), cs, cs, shift, range(20), "first", dev,
-                                     70 + i, torch.bfloat16)
+    bf16 = {"VIGOR": [_check_matching("K1", BATCH, (s, s), cs, cs, shift, range(20), "first",
+                                      70 + i, torch.bfloat16)
                       for i, (s, cs, shift) in enumerate(VIGOR_SCALES)]}
     for preset in ("KITTI", "OxfordRobotCar"):
         pc = cvm.PRESETS[preset]
-        bf16[preset] = [_time_matching("K1" if cg == cs else "K2", BATCH, (side, side), cs, cg,
-                                       shift, range(pc.bins), pc.window, dev, 80 + i,
-                                       torch.bfloat16)
+        bf16[preset] = [_check_matching("K1" if cg == cs else "K2", BATCH, (side, side), cs, cg,
+                                        shift, range(pc.bins), pc.window, 80 + i, torch.bfloat16)
                         for i, (side, cs, cg, shift) in enumerate(preset_scales(pc))]
-    emit({"phase": "kernel_times", "card": dev["nvidia_smi"], "shapes": shapes,
-          "bfloat16": bf16})
-
-    def summary(name, rows, kernel, replaces):
-        return _summary(name, rows, replaces, dev)
+    emit({"phase": "kernel_checks", "n": len(checks),
+          "tolerance": {"float32": F32_TOL, "bfloat16": BF16_TOL},
+          "max_abs_err": {f"{k} {str(d)[6:]}": v for (k, d), v in max_err.items()},
+          "graph_replays": graph_replays,
+          "main_path_layouts": {"K1": [r["layout"] for r in k1],
+                                "K2_fov180": [r["layout"] for r in k2_fov]}})
 
     bf16_rows = []
     for preset, rows in bf16.items():
         for kernel in ("K1", "K2"):
             mine = [r for r in rows if r["kernel"] == kernel]
             if mine:
-                bf16_rows.append(summary(f"{KERNEL_NAMES[kernel]} ({kernel}), {preset} bf16",
-                                         mine, kernel, K1_REPLACES if kernel == "K1"
-                                         else K2_REPLACES))
+                bf16_rows.append(_summary(f"{KERNEL_NAMES[kernel]} ({kernel}), {preset} bf16",
+                                          mine, K1_REPLACES if kernel == "K1" else K2_REPLACES))
 
     # K2 in two rows: its one launch per ori-prior forward (the full-bin
     # bottleneck stack) and its six per fov=180 forward (masked windows), so
-    # that each row's ms and launches describe the same work
-    return {"checks": checks, "graph_replays": graph_replays, "shapes": shapes,
+    # that each row's checks and launches describe the same work
+    return {"checks": checks, "graph_replays": graph_replays, "shapes": k1 + k2 + k2_fov,
             "bf16_shapes": bf16, "bf16_summary": bf16_rows,
-            "summary": [summary("matching_epilogue (K1)", k1, "K1", K1_REPLACES),
-                        summary("matching_scores (K2), ori-prior bottleneck", k2, "K2",
-                                K2_REPLACES),
-                        summary("matching_scores (K2), fov=180 masked window", k2_fov, "K2",
-                                K2_REPLACES)]}
+            "summary": [_summary("matching_epilogue (K1)", k1, K1_REPLACES),
+                        _summary("matching_scores (K2), ori-prior bottleneck", k2, K2_REPLACES),
+                        _summary("matching_scores (K2), fov=180 masked window", k2_fov,
+                                 K2_REPLACES)]}
 
 
 def _images(cfg, batch, seed):
@@ -673,7 +517,6 @@ CONV_REPLACES = "none: the JAX package leaves the decoders' 3x3 convs to XLA"
 # bar (tests/test_torch_conv_cuda.py)
 CONV_REL_TOL = 1e-5
 CONV_PRESETS = {"VIGOR": cvm.VIGOR, "KITTI": cvm.KITTI, "OxfordRobotCar": cvm.OXFORD}
-CONV_KERNELS = ("conv3x3_gemm_kernel", "conv3x3_splitk_reduce", "conv3x3_direct_kernel")
 
 
 def _conv_inputs(b, h, w, cin, cout, seed):
@@ -688,11 +531,9 @@ def _conv_launches() -> int:
     return sum(CC.launch_counts().values())
 
 
-def _conv_backward(x, wt, dev: dict) -> dict:
+def _conv_backward(x, wt) -> dict:
     """dgrad and wgrad (``ops.conv_cuda._dgrad``, ``_wgrad``) of one shape
-    against float64 ``conv2d_input`` / ``conv2d_weight`` and the bias sum,
-    each timed beside cuDNN's heuristic (``convolution_backward`` with that
-    gradient alone, as the conv modules' backward runs it) and the bound."""
+    against float64 ``conv2d_input`` / ``conv2d_weight`` and the bias sum."""
     b, cin, h, w = x.shape
     cout = wt.shape[0]
     gen = torch.Generator(device="cuda").manual_seed(cin * 7919 + cout)
@@ -712,41 +553,16 @@ def _conv_backward(x, wt, dev: dict) -> dict:
         if not errs[name] <= CONV_REL_TOL:
             raise AssertionError(f"conv3x3 {name} {[b, h, w, cin, cout]}: error {errs[name]} "
                                  f"of the largest gradient (bar {CONV_REL_TOL})")
-    del dx, dw, db, g64
-    flops = 2 * b * h * w * 9 * cin * cout
-    bound_d = _bound(4 * (b * h * w * (cin + cout) + 9 * cin * cout), flops, dev)
-    bound_w = _bound(4 * (b * h * w * (cin + cout) + 9 * cin * cout + cout), flops, dev)
-
-    def library(mask):
-        return lambda: torch.ops.aten.convolution_backward(
-            gy, x, wt, [cout], [1, 1], [1, 1], [1, 1], False, [0, 0], 1, mask)
-
-    with torch.no_grad():
-        row = {"dgrad_ms": device_ms(lambda: CC._dgrad(gy, wt)),
-               "dgrad_library_ms": device_ms(library([True, False, False])),
-               "dgrad_bound_ms": bound_d[0],
-               "dgrad_launch": CC.choose_plan(b, h, w, cout, cin)._asdict(),
-               "wgrad_ms": device_ms(lambda: CC._wgrad(x, gy)),
-               "wgrad_library_ms": device_ms(library([False, True, True])),
-               "wgrad_bound_ms": bound_w[0],
-               "wgrad_launch": CC.choose_wgrad_plan(b, h, w, cin, cout)._asdict()}
-    return {**row, "dgrad_rel_err": errs["dgrad"],
-            "wgrad_rel_err": max(errs["wgrad"], errs["bias"])}
-
-
-BACKWARD_KEYS = ("dgrad_ms", "dgrad_library_ms", "dgrad_bound_ms", "wgrad_ms",
-                 "wgrad_library_ms", "wgrad_bound_ms")
+    return {"dgrad_launch": CC.choose_plan(b, h, w, cout, cin)._asdict(),
+            "wgrad_launch": CC.choose_wgrad_plan(b, h, w, cin, cout)._asdict(),
+            "dgrad_rel_err": errs["dgrad"], "wgrad_rel_err": max(errs["wgrad"], errs["bias"])}
 
 
 def phase_conv(dev: dict) -> dict:
     """The decoders' 3x3 conv kernel (``ops.conv_cuda.conv3x3``) at every
     decoder shape of VIGOR, KITTI and Oxford at batch 8, against a float64
     conv on the card (the first conv of a pair with its ReLU, as the model
-    runs it); then, at each VIGOR and KITTI shape, the device ms of the
-    kernel, of cuDNN's heuristic choice (``F.conv2d``: the conv modules'
-    path) and of cuDNN's searched algorithm (``cudnn.benchmark``), beside
-    the bound (FLOPs at the float32 FFMA peak or bytes at the memory rate),
-    and the backward's dgrad and wgrad checked and timed
+    runs it); at each VIGOR and KITTI shape the backward's dgrad and wgrad
     (``_conv_backward``).  Oxford's shapes are VIGOR's."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -771,36 +587,16 @@ def phase_conv(dev: dict) -> dict:
                                          f"{err} of the largest output (bar {CONV_REL_TOL})")
                 errs[(shape, relu)] = err
                 del got, want
-            if preset == "OxfordRobotCar":
-                continue
-            flops = 2 * b * h * w * 9 * cin * cout
-            nbytes = 4 * (b * h * w * (cin + cout) + 9 * cin * cout + cout)
-            bound, by = _bound(nbytes, flops, dev)
-            with torch.inference_mode():
-                ms = device_ms(lambda: CC.conv3x3(x, wt, bias, relu))
-                heuristic = device_ms(lambda: torch.nn.functional.conv2d(x, wt, bias, padding=1))
-                torch.backends.cudnn.benchmark = True
-                try:
-                    search = device_ms(lambda: torch.nn.functional.conv2d(x, wt, bias, padding=1))
-                finally:
-                    torch.backends.cudnn.benchmark = False
-            rows.append({"conv": name, "shape": list(shape), "relu": relu,
-                         "launch": launch._asdict(), "ms": ms, "library_ms": heuristic,
-                         "library_search_ms": search, "bound_ms": bound, "bound_by": by,
-                         "flops": flops, "bytes": nbytes, "rel_err": errs[(shape, relu)],
-                         **_conv_backward(x, wt, dev)})
+            if preset != "OxfordRobotCar":
+                rows.append({"conv": name, "shape": list(shape), "relu": relu,
+                             "launch": launch._asdict(), "rel_err": errs[(shape, relu)],
+                             **_conv_backward(x, wt)})
             del x, wt, bias
         checked = [errs[(s, n.endswith(".0"))] for n, s in decoder_conv_shapes(cfg, BATCH)]
         entry = {"max_rel_err": max(checked), "rows": rows}
         if rows:
-            total = {k: sum(r[k] for r in rows) for k in
-                     ("ms", "library_ms", "library_search_ms", "bound_ms", "flops", "bytes",
-                      *BACKWARD_KEYS)}
-            entry.update(total, bound_by=_bound(total["bytes"], total["flops"], dev)[1],
-                         tflops=total["flops"] / total["ms"] / 1e9,
-                         pct_of_bound=100 * total["bound_ms"] / total["ms"],
-                         max_backward_rel_err=max(max(r["dgrad_rel_err"], r["wgrad_rel_err"])
-                                                  for r in rows))
+            entry["max_backward_rel_err"] = max(max(r["dgrad_rel_err"], r["wgrad_rel_err"])
+                                                for r in rows)
         info["presets"][preset] = entry
     # the split-K and the direct kernel replayed from a CUDA graph, as
     # predict_batch runs them
@@ -817,16 +613,16 @@ def phase_conv(dev: dict) -> dict:
     return info
 
 
-def phase_model(dev: dict) -> dict:
+REPLAYS = 3     # replayed predict_batch calls whose launches are counted
+
+
+def phase_model() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t0 = time.perf_counter()
     model = api.load_model(preset="VIGOR", seed=0)
     if model.device.type != "cuda":
         raise AssertionError(f"load_model chose {model.device}, not cuda")
     _calibrate(model, seed=1)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
     plain = api.CVMModel(model.cfg, model.net, model.device, matching_impl="plain")
     grd, sat = _images(model.cfg, BATCH, seed=2)
     # (setting, launches of K1 and K2 it must make): Cg == Cs at all six
@@ -876,6 +672,22 @@ def phase_model(dev: dict) -> dict:
         k2 = {k: n for k, n in got.items() if k[0] == "matching_scores"}
         if "fov" in kw and k2 != k2_fov_layouts:
             raise AssertionError(f"VIGOR {kw}: K2 launches by layout {k2}, want {k2_fov_layouts}")
+    # replayed calls without the heatmap, cuDNN's TF32 off and on (each a
+    # signature of its own, captured by the first call)
+    replayed = {}
+    for label, tf32 in (("tf32_off", False), ("cudnn_tf32_default", True)):
+        torch.backends.cudnn.allow_tf32 = tf32
+        model.predict_batch(warm_grd, warm_sat)
+        before = _conv_launches(), MC.launch_counts()
+        for _ in range(REPLAYS):
+            model.predict_batch(grd, sat)
+        after = _conv_launches(), MC.launch_counts()
+        per_call = {"conv3x3": (after[0] - before[0]) / REPLAYS,
+                    **{k: (v - before[1][k]) / REPLAYS for k, v in after[1].items()}}
+        if per_call != {"conv3x3": 24, "matching_epilogue": 6, "matching_scores": 0}:
+            raise AssertionError(f"{label}: launches a replayed call {per_call}")
+        replayed[label] = per_call
+    torch.backends.cudnn.allow_tf32 = False
 
     results = []
     for (kw, _), ps in zip(settings, poses):
@@ -900,8 +712,8 @@ def phase_model(dev: dict) -> dict:
                         "max_abs_err": errs, "heading_err_deg": heading,
                         "logit_spread_min": spread})
     info = {"phase": "model", "preset": "VIGOR", "batch": BATCH, "dtype": "float32",
-            "setup_seconds": setup_s, "graph_signatures": len(model.graphs),
-            "launches": launches,
+            "graph_signatures": len(model.graphs), "launches": launches,
+            "launches_per_replayed_call": replayed,
             "conv_launches_per_setting": conv_steps,
             "launches_per_setting": dict(zip(map(json.dumps, (kw for kw, _ in settings)), steps)),
             "launches_by_layout_per_setting": {
@@ -957,7 +769,8 @@ def phase_model_presets(dev: dict) -> dict:
     float32, TF32 off, on seeded BN-calibrated weights, through the kernels
     and through the plain versions (K1 where Cg == Cs, K2 elsewhere: KITTI's
     16 bins, 2048-d descriptor and first window; Oxford's 4x7 ground grid and
-    centred window); then each kernel at each of the preset's shapes, timed."""
+    centred window); then each kernel at each of the preset's shapes against
+    its plain version, in the layout its wrapper picks."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     info = {"phase": "model_presets", "card": dev["nvidia_smi"], "batch": BATCH,
@@ -1007,10 +820,10 @@ def phase_model_presets(dev: dict) -> dict:
         if len(model.graphs) != len(settings):
             raise AssertionError(f"{preset}: {len(model.graphs)} graph signatures, want "
                                  f"{len(settings)}")
-        times = [_time_matching("K1" if cg == cs else "K2", BATCH, (side, side), cs, cg, shift,
-                                range(model.cfg.bins), model.cfg.window, dev, 60 + i)
-                 for i, (side, cs, cg, shift) in enumerate(scales)]
-        info["presets"][preset] = {"results": results, "times": times,
+        shapes = [_check_matching("K1" if cg == cs else "K2", BATCH, (side, side), cs, cg, shift,
+                                  range(model.cfg.bins), model.cfg.window, 60 + i)
+                  for i, (side, cs, cg, shift) in enumerate(scales)]
+        info["presets"][preset] = {"results": results, "shapes": shapes,
                                    "graph_signatures": len(model.graphs)}
         del model, plain
         gc.collect()
@@ -1026,7 +839,7 @@ TRAIN_TOL = {"loss_rtol": 1e-5, "grad_rel": 1e-3, "grad_abs": 1e-6, "bn": 1e-5}
 # NANO's train step on the card against the CPU (cuDNN's and the CPU's
 # convolutions and their gradients sum in other orders)
 NANO_TRAIN_TOL = {"loss_rtol": 1e-4, "grad_rel": 1e-4, "grad_abs": 1e-6, "bn": 1e-4}
-TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+TRAIN_STEPS = 7
 
 
 def _train_batch(cfg, batch: int, seed: int, device, span: float = 200.0) -> dict:
@@ -1096,20 +909,17 @@ def _compare_steps(tag, got, want, got_parts, want_parts, tol) -> dict:
             "bn_max_abs_err": bn_err}
 
 
-def phase_train(dev: dict, out: Path | None) -> dict:
+def phase_train(dev: dict) -> dict:
     """The VIGOR train step at full width, batch 8, float32, on the card."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = cvm.VIGOR
-    t0 = time.perf_counter()
     state = _calibrated_state(cfg, seed=0)
     if next(state.model.parameters()).device.type != "cuda":
         raise AssertionError("create_train_state did not place the model on cuda")
     plain = TLOOP.create_train_state(cfg, seed=0)
     plain.model.load_state_dict(state.model.state_dict())
     data = _train_batch(cfg, BATCH, seed=2, device="cuda")
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
 
     # (a) kernel against plain, one step from identical weights, no drop-connect
     k_step = TLOOP.make_train_step(cfg)
@@ -1133,28 +943,19 @@ def phase_train(dev: dict, out: Path | None) -> dict:
     # (b) steps with drop-connect drawn on the card: the main path's run
     gen = torch.Generator(device="cuda").manual_seed(7)
     before = {k: v.clone() for k, v in state.model.state_dict().items()}
-    for _ in range(TRAIN_WARMUP):
-        k_step(state, _normalized(data), gen)
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     MC.reset_launch_counts()
     passes0 = CC.pass_counts()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    w0 = time.perf_counter()
-    a.record()
-    step_parts = [k_step(state, _normalized(data), gen) for _ in range(TRAIN_TIMED)]
-    b.record()
-    b.synchronize()
-    wall_s = time.perf_counter() - w0
+    step_parts = [k_step(state, _normalized(data), gen) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
     launches = MC.launch_counts()
-    if launches != {"matching_epilogue": 6 * TRAIN_TIMED, "matching_scores": 0}:
-        raise AssertionError(f"{TRAIN_TIMED} train steps launched {launches}")
+    if launches != {"matching_epilogue": 6 * TRAIN_STEPS, "matching_scores": 0}:
+        raise AssertionError(f"{TRAIN_STEPS} train steps launched {launches}")
     # the decoders' 24 convs of a step: forward, dgrad and wgrad on the kernels
-    passes = {k: (v - passes0[k]) / TRAIN_TIMED for k, v in CC.pass_counts().items()}
+    passes = {k: (v - passes0[k]) / TRAIN_STEPS for k, v in CC.pass_counts().items()}
     if passes != {"forward": 24, "dgrad": 24, "wgrad": 24}:
         raise AssertionError(f"a train step launched the decoder conv kernels {passes} "
                              "times by pass, want 24 each")
-    step_ms = a.elapsed_time(b) / TRAIN_TIMED
     loss_values = [p["loss"].item() for p in step_parts]
     if not all(math.isfinite(v.item()) for p in step_parts for v in p.values()):
         raise AssertionError(f"non-finite loss parts: {step_parts}")
@@ -1164,23 +965,19 @@ def phase_train(dev: dict, out: Path | None) -> dict:
             and torch.equal(before[k], after[k])}
     want_stay = {k for k in before if "._fc." in k}
     if stay != want_stay:
-        raise AssertionError(f"these stayed through {TRAIN_WARMUP + TRAIN_TIMED} steps: "
+        raise AssertionError(f"these stayed through {TRAIN_STEPS} steps: "
                              f"{sorted(stay ^ want_stay)[:8]}")
     del before, after
     info = {"phase": "train", "card": dev["nvidia_smi"], "preset": "VIGOR", "batch": BATCH,
-            "dtype": "float32", "setup_seconds": setup_s, "tolerance": TRAIN_TOL,
+            "dtype": "float32", "tolerance": TRAIN_TOL,
             "kernel_vs_plain": {**check, "launches_by_layout": {
                 f"{k} {lay}": n for (k, lay), n in k_layouts.items()}},
-            "steps": TRAIN_WARMUP + TRAIN_TIMED, "timed_steps": TRAIN_TIMED,
-            "launches": launches, "conv_launches_per_step": passes,
-            "losses": loss_values, "step_ms": step_ms,
-            "samples_per_s": BATCH / (step_ms * 1e-3),
-            "wall_samples_per_s": BATCH * TRAIN_TIMED / wall_s,
+            "steps": TRAIN_STEPS, "launches": launches, "conv_launches_per_step": passes,
+            "losses": loss_values,
             "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     emit({k: v for k, v in info.items() if k != "losses"})
     info["nano"] = phase_train_nano()
-    info["profile"] = _train_profile(state, _normalized(data), gen, dev, out)
-    # give the trainer's memory back before the inference timing
+    # give the trainer's memory back before the next phase
     del state, data
     gc.collect()
     torch.cuda.empty_cache()
@@ -1211,73 +1008,11 @@ def phase_train_nano() -> dict:
     return info
 
 
-MATCHING_BACKWARD = ("_EpilogueFnBackward", "_ScoresFnBackward")
-
-
-def split_step_profile(events, attr: str) -> dict:
-    """Time of one profiled train step by part, in ``attr`` (the events'
-    ``device_time_total`` on the card): the forward and loss and the
-    optimizer (their profiler ranges in ``train.loop``), the matching
-    backward (autograd of the plain versions under the kernels'
-    ``autograd.Function`` nodes, outermost event only), and the rest of the
-    backward as what remains of the step's kernel time."""
-    cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
-
-    def outermost(names):
-        picked = []
-        for e in cpu:
-            if e.name.endswith(names):
-                parent = e.cpu_parent
-                while parent is not None and not parent.name.endswith(names):
-                    parent = parent.cpu_parent
-                if parent is None:
-                    picked.append(e)
-        return picked
-
-    def total(evts):
-        return sum(getattr(e, attr) for e in evts) / 1e3
-
-    # every kernel is attached to the one op that launched it
-    step = sum(k.duration for e in cpu for k in e.kernels) / 1e3
-    fwd = total(outermost((TLOOP.FORWARD_RANGE,)))
-    opt = total(outermost((TLOOP.OPTIMIZER_RANGE,)))
-    mbwd = outermost(MATCHING_BACKWARD)
-    parts = {"forward_and_loss": fwd, "matching_backward": total(mbwd),
-             "optimizer": opt}
-    parts["rest_of_backward"] = step - sum(parts.values())
-    return {"step": step, **parts, "matching_backward_nodes": len(mbwd)}
-
-
-def _train_profile(state, batch, gen, dev: dict, out: Path | None) -> dict:
-    """(d) ``torch.profiler`` over one train step: device ms by part and the
-    top kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
-    step = TLOOP.make_train_step(cvm.VIGOR)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(state, batch, gen)
-        torch.cuda.synchronize()
-    split = split_step_profile(prof.events(), "device_time_total")
-    if split["matching_backward_nodes"] != 6 or not split["matching_backward"] > 0:
-        raise AssertionError(f"the profile shows {split['matching_backward_nodes']} matching "
-                             f"backward nodes with {split['matching_backward']} device ms")
-    if out is not None:
-        (out / "train_profile.txt").write_text(
-            prof.key_averages().table(sort_by="device_time_total", row_limit=60))
-        prof.export_chrome_trace(str(out / "train_trace.json"))
-    top = TA.summarize_profile(prof, iters=1, top=15)["top_ops"]
-    info = {"phase": "train_profile", "card": dev["nvidia_smi"], "device_ms": split,
-            "top": [{"kernel": r["name"][:90], "ms": r["ms_per_iter"], "launches": r["launches"]}
-                    for r in top]}
-    emit(info)
-    return info
-
-
 # train_options: the remat steps against the step without remat (float32,
 # drop-connect on): the same forward, so the loss parts agree to rounding;
 # cuDNN's weight gradients may sum in another order on each run
 REMAT_TOL = {"loss_rtol": 1e-6, "grad_rel": 1e-4, "grad_abs": 1e-7, "bn": 1e-6}
-OPTION_STEPS = 3          # timed steps per configuration, after one warm-up
+OPTION_STEPS = 4          # steps per configuration in (d)
 # the bf16 VIGOR step through K1 against the same bf16 step through the
 # plain versions, cuDNN deterministic: the kernel's and the plain version's
 # outputs differ by up to one bf16 rounding (BF16_TOL) and the bf16
@@ -1307,36 +1042,17 @@ def _step_distance(got, want, got_parts, want_parts) -> dict:
             / want_parts["grad_norm"].item()}
 
 
-def _timed_steps(state, step, batch, gen) -> dict:
-    """Step ms (CUDA events over OPTION_STEPS steps after one warm-up), the
-    peak memory allocated during them, and one more step under
-    ``torch.profiler``: the card's busy ms and the kernels it ran."""
-    from torch.profiler import ProfilerActivity, profile
-
-    step(state, batch, gen)
+def _option_steps(state, step, batch, gen) -> dict:
+    """OPTION_STEPS steps with finite loss parts, and the peak memory
+    allocated during them."""
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(state, batch, gen)
-        torch.cuda.synchronize()
-        prof_wall = (time.perf_counter() - t0) * 1e3
-    busy_ms, _ = _busy_ms(prof.events())
-    kernels = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
     parts = [step(state, batch, gen) for _ in range(OPTION_STEPS)]
-    b.record()
-    b.synchronize()
     if not all(math.isfinite(v.item()) for p in parts for v in p.values()):
         raise AssertionError(f"non-finite loss parts: {parts}")
-    step_ms = a.elapsed_time(b) / OPTION_STEPS
-    return {"step_ms": step_ms,
-            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-            "peak_over_resident_gib": (torch.cuda.max_memory_allocated() - resident) / 2 ** 30,
-            "profiled_busy_ms": busy_ms, "profiled_wall_ms": prof_wall,
-            "device_ops_per_step": kernels, "idle_share": 1 - busy_ms / step_ms}
+    return {"peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "peak_over_resident_gib": (torch.cuda.max_memory_allocated() - resident) / 2 ** 30}
 
 
 def _dtype_launches() -> dict:
@@ -1367,14 +1083,13 @@ def phase_train_options(dev: dict) -> dict:
     bf16 step through K1 against the same bf16 step through the plain
     versions (the bar from the float32 step); (b) remat 'all', 'encoder'
     and 'decoder' against no remat, drop-connect on; (c) three steps of
-    bf16 parameters with the float32 master; (d) step ms and peak memory of
-    each configuration."""
+    bf16 parameters with the float32 master; (d) finite losses and peak
+    memory of each configuration."""
     import copy
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = cvm.VIGOR
-    t_phase = time.perf_counter()
     base = _calibrated_state(cfg, seed=0)
     data = _normalized(_train_batch(cfg, BATCH, seed=2, device="cuda"))
     info = {"phase": "train_options", "card": dev["nvidia_smi"], "preset": cfg.name,
@@ -1470,25 +1185,24 @@ def phase_train_options(dev: dict) -> dict:
     del state, step, opt
     torch.cuda.empty_cache()
 
-    # (d) step ms and peak memory per configuration, drop-connect on
+    # (d) finite losses and peak memory per configuration, drop-connect on
     configs = {"float32": ({}, None), "bf16": (dict(compute_dtype="bfloat16"), None),
                "bf16+bf16_params": (dict(compute_dtype="bfloat16"), "bfloat16"),
                "remat_all": (dict(remat="all"), None),
                "remat_encoder": (dict(remat="encoder"), None),
                "remat_decoder": (dict(remat="decoder"), None)}
-    info["timing"] = {}
+    info["configs"] = {}
     MC.reset_launch_counts()
     for name, (kw, param_dtype) in configs.items():
         state = (TLOOP.train_state_from_torch(base.model.state_dict(), cfg,
                                               param_dtype=param_dtype)
                  if param_dtype else copy.deepcopy(base))
-        info["timing"][name] = _timed_steps(state, TLOOP.make_train_step(cfg, **kw), data, gen)
+        info["configs"][name] = _option_steps(state, TLOOP.make_train_step(cfg, **kw), data, gen)
         del state
         gc.collect()
         torch.cuda.empty_cache()
     bf16_launches += MC.launch_counts("dtype")["matching_epilogue", "bfloat16"]
     info["launches_bf16_k1"] = bf16_launches
-    info["seconds"] = time.perf_counter() - t_phase
     emit(info)
     del base, data
     gc.collect()
@@ -1498,62 +1212,6 @@ def phase_train_options(dev: dict) -> dict:
 
 DATA_TOL = 1e-6           # a device batch on the card against the same batch on the CPU
 FED_STEPS = 6             # one epoch of the synthetic VIGOR root: 48 panoramas, batch 8
-DATA_ROUNDS = 3           # fed and resident epochs, in turns
-
-
-def _busy_ms(events) -> tuple[float, float]:
-    """(busy ms, span ms) of the card in a profile: the union of the
-    intervals of its kernels and copies, and the time from the first one's
-    start to the last one's end.  A profiler range also shows as a span on
-    the device; those are left out."""
-    cpu = {e.name for e in events if e.device_type == torch.autograd.DeviceType.CPU}
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in cpu)
-    busy, cur_start, cur_end = 0.0, None, None
-    for a, b in spans:
-        if cur_end is None or a > cur_end:
-            if cur_end is not None:
-                busy += cur_end - cur_start
-            cur_start, cur_end = a, b
-        else:
-            cur_end = max(cur_end, b)
-    if cur_end is not None:
-        busy += cur_end - cur_start
-    return busy / 1e3, (spans[-1][1] - spans[0][0]) / 1e3 if spans else 0.0
-
-
-def _steps(state, step, batches, gen, profiled: bool) -> dict:
-    """Train steps over ``batches``; the first is a warm-up, the rest are
-    timed between two CUDA events (device time per step, waits for data
-    included) and, when ``profiled``, traced for the card's idle share."""
-    from torch.profiler import ProfilerActivity, profile
-
-    it = iter(batches)
-    parts = [step(state, next(it), gen)]
-    torch.cuda.synchronize()
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled else None
-    if prof is not None:
-        prof.__enter__()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    w0 = time.perf_counter()
-    a.record()
-    n = 0
-    for batch in it:
-        parts.append(step(state, batch, gen))
-        n += 1
-    b.record()
-    b.synchronize()
-    wall = time.perf_counter() - w0
-    res = {"steps": n + 1, "timed_steps": n, "step_ms": a.elapsed_time(b) / n,
-           "wall_step_ms": wall / n * 1e3, "losses": [p["loss"].item() for p in parts]}
-    if prof is not None:
-        prof.__exit__(None, None, None)
-        busy, span = _busy_ms(prof.events())
-        res.update(busy_ms_per_step=busy / n, profiled_span_ms=span,
-                   idle_share_profiled=1 - busy / span)
-    if not all(math.isfinite(v) for v in res["losses"]):
-        raise AssertionError(f"non-finite losses {res['losses']}")
-    return res
 
 
 def _check_batch(tag, got: dict, want: dict, tol: float) -> dict:
@@ -1587,8 +1245,7 @@ def phase_data(dev: dict, roots: dict) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     info = {"phase": "data", "card": dev["nvidia_smi"], "batch": BATCH, "decode": "PIL",
-            "pil": PIL.__version__, "workers": 8, "tolerance": DATA_TOL,
-            "root_write_s": roots["write_s"]}
+            "pil": PIL.__version__, "workers": 8, "tolerance": DATA_TOL}
     index = DV.VigorIndex.load(roots["vigor"], "crossarea", train=True)
     sampler = DV.VigorSampler(index, pos_only=False)
     order = DP.epoch_indices(len(index), shuffle=True, rng=np.random.default_rng(0))
@@ -1597,31 +1254,11 @@ def phase_data(dev: dict, roots: dict) -> dict:
         return DP.Loader(sampler, order, batch_size=BATCH, num_workers=8, **kw)
 
     # the loader alone: host decode, resize and collation, no device work
-    t0 = time.perf_counter()
     hosts = list(loader(native_batch=False))
-    loader_s = time.perf_counter() - t0
     if len(hosts) != FED_STEPS:
         raise AssertionError(f"{len(hosts)} batches from {len(index)} panoramas")
-    info["loader_batches_per_s"] = len(hosts) / loader_s
-    info["loader_ms_per_batch"] = loader_s / len(hosts) * 1e3
     info["h2d_bytes_per_batch"] = sum(v.nbytes for v in hosts[0].values()
                                       if v.dtype.kind in "biuf")
-
-    # one thread's PIL decode and resize of one image of each kind
-    from ccvpe_torch.data.transforms import load_image
-
-    def decode_ms(paths, hw):
-        times = []
-        for p in paths:
-            t0 = time.perf_counter()
-            load_image(str(p), hw)
-            times.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(times)
-
-    info["decode_ms"] = {"panorama_2048x1024_jpeg_to_320x640": decode_ms(
-                             index.grd_paths[:8], DV.GRD_HW),
-                         "tile_640x640_png_to_512x512": decode_ms(
-                             index.sat_paths[:8], DV.SAT_HW)}
 
     # one batch on the card against the same batch on the CPU
     fn = lambda raw: DV.device_batch(raw, train=True, device="cuda")
@@ -1630,64 +1267,34 @@ def phase_data(dev: dict, roots: dict) -> dict:
         "VIGOR device batch", sync, DV.device_batch(hosts[0], train=True, device="cpu"),
         DATA_TOL)
 
-    # the main path: steps fed from the root, the batch assembled on the
-    # side stream; then the same steps on one resident batch
+    # the main path: an epoch of steps fed from the root, the batch
+    # assembled on the side stream
     state = _calibrated_state(cvm.VIGOR, seed=0)
     step = TLOOP.make_train_step(cvm.VIGOR)
     gen = torch.Generator(device="cuda").manual_seed(7)
-    prefetched = {}
-
-    def fed(epoch):
-        sampler.set_epoch(epoch)
-        for i, batch in enumerate(DP.device_prefetch(loader(native_batch=False), fn,
-                                                     device="cuda")):
-            if epoch == 0 and i == 0:
-                prefetched.update(batch)
-            yield batch
-
-    resident = [sync] * FED_STEPS
-    fed_ms, resident_ms = [], []
-    for r in range(DATA_ROUNDS):      # in turns: fed, resident, fed, ...
-        if r == 0:
-            MC.reset_launch_counts()
-        run = _steps(state, step, fed(r), gen, profiled=False)
-        if r == 0:
-            launches = MC.launch_counts()
-            if launches != {"matching_epilogue": 6 * FED_STEPS, "matching_scores": 0}:
-                raise AssertionError(f"{FED_STEPS} fed steps launched {launches}")
-            info["launches"] = launches
-            info["prefetched_equals_synchronous"] = {
-                k: torch.equal(prefetched[k], v) for k, v in sync.items()}
-            if not all(info["prefetched_equals_synchronous"].values()):
-                raise AssertionError(f"prefetched batch differs: "
-                                     f"{info['prefetched_equals_synchronous']}")
-            prefetched.clear()
-            info["fed_losses"] = run["losses"]
-        fed_ms.append(run["step_ms"])
-        resident_ms.append(_steps(state, step, resident, gen, profiled=False)["step_ms"])
-    info["fed_step_ms"], info["resident_step_ms"] = fed_ms, resident_ms
-    info["fed_step_ms_median"] = statistics.median(fed_ms)
-    info["resident_step_ms_median"] = statistics.median(resident_ms)
-    # the card's idle share: kernel and copy time per step from a
-    # profiled epoch over the step time of the unprofiled runs (the
-    # profiler slows the host), and the share idle under the profiler
-    for name, batches, ms in (("fed", fed(DATA_ROUNDS), fed_ms),
-                              ("resident", resident, resident_ms)):
-        prof = _steps(state, step, batches, gen, profiled=True)
-        prof["idle_share"] = 1 - prof["busy_ms_per_step"] / statistics.median(ms)
-        del prof["losses"]
-        info[f"{name}_profiled"] = prof
-    info["device_batch_ms"] = time_ms(lambda: fn(hosts[0]), reps=5, warmup=1)
     sampler.set_epoch(0)
-    del state, sync, resident
+    MC.reset_launch_counts()
+    losses = []
+    for i, batch in enumerate(DP.device_prefetch(loader(native_batch=False), fn, device="cuda")):
+        if i == 0:
+            info["prefetched_equals_synchronous"] = {
+                k: torch.equal(batch[k], v) for k, v in sync.items()}
+        losses.append(step(state, batch, gen)["loss"].item())
+    launches = MC.launch_counts()
+    if launches != {"matching_epilogue": 6 * FED_STEPS, "matching_scores": 0}:
+        raise AssertionError(f"{FED_STEPS} fed steps launched {launches}")
+    if not all(info["prefetched_equals_synchronous"].values()):
+        raise AssertionError(f"prefetched batch differs: {info['prefetched_equals_synchronous']}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite losses {losses}")
+    info["launches"], info["fed_losses"] = launches, losses
+    del state, sync
     gc.collect()
     torch.cuda.empty_cache()
 
     # the native decoder's batch path (opt-in, as in the JAX package)
     if native_loader.available():
-        t0 = time.perf_counter()
         native = list(loader(native_batch=True))
-        native_s = time.perf_counter() - t0
         diff = {k: int(np.abs(a[k].astype(int) - b[k].astype(int)).max())
                 for a, b in zip(native[:1], hosts[:1]) for k in ("grd", "sat")}
         for a, b in zip(native, hosts):
@@ -1696,8 +1303,7 @@ def phase_data(dev: dict, roots: dict) -> dict:
             for k in ("grd", "sat"):
                 if np.abs(a[k].astype(int) - b[k].astype(int)).mean() >= 1.0:
                     raise AssertionError(f"native {k} differs from PIL's")
-        info["native"] = {"ran": True, "batches_per_s": len(native) / native_s,
-                          "max_abs_diff_vs_pil_first_batch": diff}
+        info["native"] = {"ran": True, "max_abs_diff_vs_pil_first_batch": diff}
     else:
         info["native"] = {"ran": False, "build_error": native_loader.build_error()}
     del hosts
@@ -1720,10 +1326,7 @@ def phase_data(dev: dict, roots: dict) -> dict:
         "equal_share": (sat.amax(dim=-1) <= DATA_TOL).float().mean().item(),
         "max_abs_err": _check_batch("KITTI device batch",
                                     {k: v for k, v in card.items() if k != "sat"},
-                                    {k: v for k, v in cpu.items() if k != "sat"}, DATA_TOL),
-        # host arrays in (39 MB of raw tiles copied), device batch out
-        "device_batch_ms": time_ms(
-            lambda: DK.device_batch_device_aug(raw, device="cuda", **kw), reps=5, warmup=1)}
+                                    {k: v for k, v in cpu.items() if k != "sat"}, DATA_TOL)}
     del card, cpu, raw
 
     # Oxford: a 4000x4000 aerial map, 1280x960 ground frames
@@ -1752,8 +1355,7 @@ def write_roots(tmp: str) -> dict:
     three test traversals of 8)."""
     from ccvpe_torch.data import synthetic
 
-    t0 = time.perf_counter()
-    roots = {
+    return {
         "vigor": synthetic.write_vigor_root(
             f"{tmp}/vigor", panos_per_city=24, sats_per_city=24, pano_hw=(1024, 2048),
             sat_hw=(640, 640), pano_ext=".jpg", span=300.0, seed=0),
@@ -1761,23 +1363,17 @@ def write_roots(tmp: str) -> dict:
                                             grd_hw=(375, 1242), sat_hw=(1280, 1280), seed=1),
         "oxford": synthetic.write_oxford_root(f"{tmp}/oxford/", n=3 * BATCH, map_hw=(4000, 4000),
                                               grd_hw=(960, 1280), test_frames=BATCH, seed=2)}
-    roots["write_s"] = time.perf_counter() - t0
-    return roots
 
 
 class _CliProbe:
     """While active, records what the CLIs' harness does, without a host
-    sync in its loops: each trainer, each train epoch's pairs/s, each
-    step's loss (on the card), each eval pass's readout dicts (on the card),
-    wall time and pairs/s, each checkpoint save's and restore's ms; each
-    resume is checked bit for bit against the file it restored.  With
-    ``profile_eval`` set, an eval pass runs under ``torch.profiler`` and its
-    busy device ms are kept."""
+    sync in its loops: each trainer, each train epoch, each step's loss (on
+    the card), each eval pass's readout dicts (on the card); each resume is
+    checked bit for bit against the file it restored."""
 
     def __init__(self):
         self.trainers, self.epochs, self.losses, self.readouts = [], [], [], []
-        self.evals, self.saves_ms, self.restores_ms, self.resumes = [], [], [], []
-        self.profile_eval = False
+        self.resumes = []
         self._undo = []
 
     def _patch(self, owner, name, wrap):
@@ -1786,7 +1382,6 @@ class _CliProbe:
         self._undo.append((owner, name, orig))
 
     def __enter__(self):
-        from ccvpe_torch.io.checkpoint import CheckpointManager
         from ccvpe_torch.train import harness
 
         probe = self
@@ -1816,42 +1411,10 @@ class _CliProbe:
         def train_epoch(orig):
             def wrapped(self, loader, fn, epoch):
                 probe.trainers.append(self)
-                pps = orig(self, loader, fn, epoch)
-                probe.epochs.append({"epoch": epoch, "pairs_per_s": pps})
-                return pps
+                out = orig(self, loader, fn, epoch)
+                probe.epochs.append(epoch)
+                return out
             return wrapped
-
-        def evaluate(orig):
-            def wrapped(self, *a, **kw):
-                from torch.profiler import ProfilerActivity, profile
-
-                prof = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-                        if probe.profile_eval else None)
-                t0 = time.perf_counter()
-                if prof is not None:
-                    prof.__enter__()
-                summary = orig(self, *a, **kw)
-                torch.cuda.synchronize()
-                rec = {"wall_ms": (time.perf_counter() - t0) * 1e3,
-                       "pairs_per_sec": summary["pairs_per_sec"]}
-                if prof is not None:
-                    prof.__exit__(None, None, None)
-                    rec["busy_ms"], rec["span_ms"] = _busy_ms(prof.events())
-                probe.evals.append(rec)
-                return summary
-            return wrapped
-
-        def timed(records):
-            def wrap(orig):
-                def wrapped(*a, **kw):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    out = orig(*a, **kw)
-                    torch.cuda.synchronize()
-                    records.append((time.perf_counter() - t0) * 1e3)
-                    return out
-                return wrapped
-            return wrap
 
         def resume(orig):
             def wrapped(self):
@@ -1864,10 +1427,7 @@ class _CliProbe:
         self._patch(TLOOP, "make_train_step", train_step)
         self._patch(TLOOP, "make_eval_readout_step", readout_step)
         self._patch(harness.Trainer, "train_epoch", train_epoch)
-        self._patch(harness.Trainer, "evaluate", evaluate)
         self._patch(harness.Trainer, "resume", resume)
-        self._patch(CheckpointManager, "save", timed(self.saves_ms))
-        self._patch(CheckpointManager, "restore", timed(self.restores_ms))
         return self
 
     def __exit__(self, *exc):
@@ -1876,7 +1436,7 @@ class _CliProbe:
         return False
 
     def clear(self):
-        for records in (self.trainers, self.epochs, self.losses, self.readouts, self.evals):
+        for records in (self.trainers, self.epochs, self.losses, self.readouts):
             del records[:]
 
 
@@ -2070,23 +1630,17 @@ def _eval_both(tag, main, argv, probe, eval_keys) -> dict:
         out = main(argv + ["--matching_impl", impl])
         summaries = {k: out[k] for k in eval_keys} if eval_keys else {"all": out}
         runs[impl] = {"summary": summaries, "launches": _launches(),
-                      "readout": _readouts(probe),
-                      "pairs_per_s": [e["pairs_per_sec"] for e in probe.evals],
-                      "wall_ms": [e["wall_ms"] for e in probe.evals]}
+                      "readout": _readouts(probe)}
     if runs["plain"]["launches"]["K1"] or runs["plain"]["launches"]["K2"]:
         raise AssertionError(f"{tag}: the plain run launched {runs['plain']['launches']}")
-    res = {"check": _kernel_vs_plain(tag, runs), "launches": runs["kernel"]["launches"],
-           "eval_pairs_per_s": runs["kernel"]["pairs_per_s"],
-           "eval_wall_ms": runs["kernel"]["wall_ms"],
-           "plain_eval_pairs_per_s": runs["plain"]["pairs_per_s"],
-           "median_distance_m": {s: v["median_distance_m"]
-                                 for s, v in runs["kernel"]["summary"].items()}}
-    return res
+    return {"check": _kernel_vs_plain(tag, runs), "launches": runs["kernel"]["launches"],
+            "median_distance_m": {s: v["median_distance_m"]
+                                  for s, v in runs["kernel"]["summary"].items()}}
 
 
 def _train_cli(tag, main, argv, probe, want_steps: int) -> dict:
-    """One train CLI run: finite losses, the steps taken, each epoch's
-    train pairs/s, the launches and the peak memory allocated."""
+    """One train CLI run: finite losses, the steps taken, the epochs, the
+    launches and the peak memory allocated."""
     probe.clear()
     MC.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -2095,7 +1649,6 @@ def _train_cli(tag, main, argv, probe, want_steps: int) -> dict:
     if len(losses) != want_steps or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"{tag}: losses {losses}, want {want_steps} finite")
     return {"losses": losses, "epochs": list(probe.epochs), "launches": _launches(),
-            "val_pairs_per_s": [e["pairs_per_sec"] for e in probe.evals],
             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
@@ -2125,7 +1678,6 @@ def phase_cli(dev: dict, roots: dict) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     info = {"phase": "cli", "card": dev["nvidia_smi"], "batch": BATCH, "dtype": "float32",
             "prob_tolerance": CLI_PROB_TOL, "heading_tolerance_deg": HEADING_TOL_DEG}
-    t_phase = time.perf_counter()
     common = ["-b", str(BATCH), "--num_workers", "8"]
     with tempfile.TemporaryDirectory(prefix="ccvpe_smoke_cli_") as tmp, _CliProbe() as probe:
         # 1. VIGOR: one epoch, a checkpoint, then a resumed second epoch
@@ -2140,7 +1692,7 @@ def phase_cli(dev: dict, roots: dict) -> dict:
         ckpt_bytes = os.path.getsize(manager.path(3))
         resumed = _train_cli("VIGOR resume", train_VIGOR.main,
                              argv + ["--epochs", "2", "--resume"], probe, 3)
-        if [e["epoch"] for e in resumed["epochs"]] != [1] or len(probe.resumes) != 1:
+        if resumed["epochs"] != [1] or len(probe.resumes) != 1:
             raise AssertionError(f"resume ran epochs {resumed['epochs']}")
         label = "samearea_HFoV360"
         for stem in ("mean_distance_error", "median_distance_error", "mean_orientation_error",
@@ -2154,8 +1706,7 @@ def phase_cli(dev: dict, roots: dict) -> dict:
             raise AssertionError(f"summary.json: {summary_lines}")
         info["vigor_train"] = {
             "first": first, "resumed": resumed, "resume_check": probe.resumes[0],
-            "checkpoint_bytes": ckpt_bytes, "save_ms": list(probe.saves_ms),
-            "restore_ms": list(probe.restores_ms), "results_lines": summary_lines}
+            "checkpoint_bytes": ckpt_bytes, "results_lines": summary_lines}
         pt = f"{tmp}/vigor.pt"
         _save_trained(probe, pt)
 
@@ -2170,23 +1721,6 @@ def phase_cli(dev: dict, roots: dict) -> dict:
             if {k: r["launches"][k] for k in want} != want:
                 raise AssertionError(f"VIGOR eval {name}: launches {r['launches']}, want {want}")
             info["vigor_eval"][name] = r
-        # the card's idle share over one eval pass: busy device ms under the
-        # profiler over the same setting's unprofiled wall time
-        probe.clear()
-        probe.profile_eval = True
-        train_VIGOR.main(common + ["--dataset_root", roots["vigor"], "--training", "False",
-                                   "--steps_per_epoch", str(CLI_EVAL_BATCHES),
-                                   "--test_model_path", pt, "--matching_impl", "kernel",
-                                   "--results_dir", f"{tmp}/eval_res"])
-        probe.profile_eval = False
-        prof = probe.evals[-1]
-        wall_ms = info["vigor_eval"]["ori_noise_180"]["eval_wall_ms"][0]
-        info["vigor_eval_idle"] = {"busy_ms": prof["busy_ms"], "profiled_wall_ms": prof["wall_ms"],
-                                   "unprofiled_wall_ms": wall_ms,
-                                   "idle_share": 1 - prof["busy_ms"] / wall_ms,
-                                   "idle_share_profiled": 1 - prof["busy_ms"] / prof["wall_ms"]}
-        probe.clear()
-
         # 3. KITTI and Oxford: two train steps, then kernel against plain eval
         for preset, main, root_flags, eval_keys in (
                 ("KITTI", train_KITTI.main, ["--dataset_root", roots["kitti"]],
@@ -2209,7 +1743,6 @@ def phase_cli(dev: dict, roots: dict) -> dict:
 
         # 4. the training options
         info["options"] = _options_cli(tmp, roots, common, probe)
-    info["seconds"] = time.perf_counter() - t_phase
     emit(info)
     return info
 
@@ -2236,11 +1769,6 @@ def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
-
-
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
 
 
 def _snapshot(state) -> dict:
@@ -2294,7 +1822,7 @@ def _parallel_refs(cfg, d: str, device, span: float) -> dict:
     """One process, no process group: the start (seeded weights, calibrated
     BN statistics) and the global batch written for the ranks, and the
     reference steps at the global batch: two plain steps, two of
-    ``grad_accum=2``."""
+    ``grad_accum=2``.  Returns the K1/K2 launches per forward of each."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     state = _calibrated_state(cfg, seed=0, device=device)
@@ -2308,14 +1836,10 @@ def _parallel_refs(cfg, d: str, device, span: float) -> dict:
         st = TLOOP.train_state_from_torch(sd, cfg, device=device)
         step = TLOOP.make_train_step(cfg, grad_accum=accum)
         steps = PARALLEL_STEPS
-        parts, snap, ms = [], None, []
+        parts, snap = [], None
         MC.reset_launch_counts()
         for i in range(steps):
-            _sync(device)
-            t0 = time.perf_counter()
             p = step(st, batch)
-            _sync(device)
-            ms.append((time.perf_counter() - t0) * 1e3)
             parts.append({k: v.item() for k, v in p.items()})
             if i == 0:
                 snap = _snapshot(st)
@@ -2324,7 +1848,7 @@ def _parallel_refs(cfg, d: str, device, span: float) -> dict:
             raise AssertionError(f"the one-process VIGOR step launched {per_forward} a forward")
         torch.save({"parts": parts, **snap, "params": _params(st),
                     "launches_per_forward": per_forward}, f"{d}/ref_{accum}.pt")
-        info[f"grad_accum_{accum}_step_ms"] = ms
+        info[f"grad_accum_{accum}_launches_per_forward"] = per_forward
         del st
     return info
 
@@ -2368,13 +1892,9 @@ def _parallel_rank(rank: int, world: int, port: int, d: str, cfg_name: str, devi
             torch.cuda.reset_peak_memory_stats()
         MC.reset_launch_counts()
         mesh.reset_all_reduced_bytes()
-        parts, ms, snap = [], [], None
+        parts, snap = [], None
         for i in range(steps):
-            _sync(device)
-            t0 = time.perf_counter()
             p = step(state, local)
-            _sync(device)
-            ms.append((time.perf_counter() - t0) * 1e3)
             parts.append({k: v.item() for k, v in p.items()})
             if i == 0:
                 snap = _snapshot(state)
@@ -2384,7 +1904,7 @@ def _parallel_rank(rank: int, world: int, port: int, d: str, cfg_name: str, devi
         if launches != want:
             raise AssertionError(f"rank {rank} {name}: launches {launches}, want {want}")
         case = {"held": _held(f"rank {rank} {name}", parts, snap, refs[ref]),
-                "step_ms": ms, "launches": launches,
+                "launches": launches,
                 "launches_by_layout": {f"{k} {lay}": n for (k, lay), n
                                        in MC.launch_counts("layout").items() if n},
                 "bn_and_loss_all_reduced_bytes_per_step": mesh.all_reduced_bytes() // steps,
@@ -2554,12 +2074,12 @@ def _mesh_serving(model: api.CVMModel, tmp: str) -> dict:
         service, srv = started["service"], started["srv"]
         url = f"http://127.0.0.1:{srv.server_address[1]}"
         MC.reset_launch_counts()
-        answers, wall = clients.submit(_client_load, url, bodies, BATCH).result()
+        answers = clients.submit(_client_load, url, bodies, BATCH).result()
         torch.cuda.synchronize()
         serve_launches = MC.launch_counts()
         want = model.predict_batch(np.stack([_prepare(g, cfg.grd_hw) for g, _ in pairs]),
                                    np.stack([_prepare(s, cfg.sat_hw) for _, s in pairs]))
-        for (code, got, _), w in zip(answers, want):
+        for (code, got), w in zip(answers, want):
             if code != 200 or (got["row"], got["col"]) != (w.row, w.col) or abs(
                     got["probability"] - w.probability) > SERVE_PROB_TOL:
                 raise AssertionError(f"serve --mesh data: {code} {got} vs {w}")
@@ -2579,7 +2099,7 @@ def _mesh_serving(model: api.CVMModel, tmp: str) -> dict:
                                    "launches_by_key": counts},
             "batch_of_one": "first replica",
             "serve_mesh_data": {"replicas": replicas, "requests": len(bodies),
-                                "seconds": wall, "launches": serve_launches}}
+                                "launches": serve_launches}}
 
 
 def phase_parallel(dev: dict, model: api.CVMModel, cfg=None, device: str = "cuda",
@@ -2590,18 +2110,15 @@ def phase_parallel(dev: dict, model: api.CVMModel, cfg=None, device: str = "cuda
     step; (c) one rank over NCCL against no process group, bit for bit;
     (d) serving from a two-replica mesh."""
     cfg = cfg or cvm.VIGOR
-    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="ccvpe_smoke_parallel_") as d:
         ref_info = _parallel_refs(cfg, d, device, span)
         gc.collect()
         if torch.device(device).type == "cuda":
             torch.cuda.empty_cache()
         port = _free_port()
-        t1 = time.perf_counter()
         _spawn(rank_target or _parallel_rank,
                [(r, PARALLEL_RANKS, port, d, cfg.name, device) for r in range(PARALLEL_RANKS)],
                timeout_s=400)
-        ranks_s = time.perf_counter() - t1
         ranks = []
         for r in range(PARALLEL_RANKS):
             with open(f"{d}/rank{r}.json") as f:
@@ -2619,13 +2136,13 @@ def phase_parallel(dev: dict, model: api.CVMModel, cfg=None, device: str = "cuda
         serving = _mesh_serving(model, d)
     info = {"phase": "parallel", "card": dev["nvidia_smi"], "preset": cfg.name,
             "global_batch": BATCH, "ranks": PARALLEL_RANKS, "label": GLOO_LABEL,
-            "reference": ref_info, "ranks_seconds": ranks_s,
+            "reference": ref_info,
             "by_rank": [x["cases"] for x in ranks], "nccl_one_rank": nccl,
-            "serving": serving, "seconds": time.perf_counter() - t0,
+            "serving": serving,
             "n_model": "run on one card: FSDP2 over gloo on CUDA tensors"}
     info["k1_launches"] = sum(c["launches"]["matching_epilogue"]
                               for x in ranks for c in x["cases"].values())
-    keep = ("step_ms", "peak_gib", "launches_by_layout", "gradient_all_reduced_bytes_per_step",
+    keep = ("peak_gib", "launches_by_layout", "gradient_all_reduced_bytes_per_step",
             "bn_and_loss_all_reduced_bytes_per_step", "params_vs_ddp_worst_over_limit",
             "sharded_tensors")
     emit({**{k: v for k, v in info.items() if k != "by_rank"},
@@ -2635,66 +2152,6 @@ def phase_parallel(dev: dict, model: api.CVMModel, cfg=None, device: str = "cuda
                               "bn_max_abs_err": c["held"]["bn_max_abs_err"]}
                        for name, c in x.items()} for x in info["by_rank"]]})
     return info
-
-
-def phase_timing(dev: dict, model: api.CVMModel, out: Path | None) -> dict:
-    grd, sat = _images(model.cfg, BATCH, seed=6)
-    res = {"phase": "timing", "card": dev["nvidia_smi"], "batch": BATCH, "dtype": "float32"}
-    for label, tf32 in (("tf32_off", False), ("cudnn_tf32_default", True)):
-        torch.backends.cudnn.allow_tf32 = tf32
-        for _ in range(3):
-            model.predict_batch(grd, sat)
-        torch.cuda.synchronize()
-        n = 10
-        before = _conv_launches(), MC.launch_counts()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            model.predict_batch(grd, sat)
-        dt = time.perf_counter() - t0
-        after = _conv_launches(), MC.launch_counts()
-        per_call = {"conv3x3": (after[0] - before[0]) / n,
-                    **{k: (v - before[1][k]) / n for k, v in after[1].items()}}
-        if per_call != {"conv3x3": 24, "matching_epilogue": 6, "matching_scores": 0}:
-            raise AssertionError(f"{label}: launches a replayed call {per_call}")
-        fwd = time_ms(lambda: model.forward_readout(grd, sat), reps=10, warmup=1)
-        smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
-                              "--format=csv,noheader"], capture_output=True, text=True,
-                             timeout=60).stdout.strip()
-        res[label] = {"pairs_per_s": BATCH * n / dt, "predict_batch_ms": dt / n * 1e3,
-                      "graphed": model.uses_graphs(), "launches_per_call": per_call,
-                      "forward_readout_ms": fwd, "after": smi}
-    torch.backends.cudnn.allow_tf32 = False
-    res["profile"] = _profile(model, grd, sat, out)
-    emit(res)
-    return res
-
-
-def _profile(model, grd, sat, out: Path | None) -> dict:
-    from torch.profiler import ProfilerActivity, profile
-
-    model.predict_batch(grd, sat)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            model.predict_batch(grd, sat)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) / 3 * 1e3
-    if out is not None:
-        (out / "profile.txt").write_text(
-            prof.key_averages().table(sort_by="device_time_total", row_limit=60))
-        prof.export_chrome_trace(str(out / "trace.json"))
-    durations, counts = TA.profile_durations(prof)
-    mine = [k for k in durations if any(n in k for n in MATCH_KERNELS)]
-    conv = [k for k in durations if any(n in k for n in CONV_KERNELS)]
-    return {"device_ms_per_call": sum(durations.values()) / 3e3,
-            "conv_kernels_ms_per_call": sum(durations[k] for k in conv) / 3e3,
-            "conv_kernel_launches_per_call": sum(counts[k] for k in conv) / 3,
-            "wall_ms_per_call_profiled": wall_ms,
-            "matching_kernels_ms_per_call": sum(durations[k] for k in mine) / 3e3,
-            "matching_kernel_launches_per_call": sum(counts[k] for k in mine) / 3,
-            "top": [{"kernel": r["name"][:90], "ms_per_call": r["ms_per_iter"],
-                     "launches_per_call": r["launches"]}
-                    for r in TA.summarize(durations, iters=3, top=15, counts=counts)["top_ops"]]}
 
 
 SERVE_KEYS = ((180.0, 360.0), (36.0, 360.0), (180.0, 180.0))
@@ -2715,9 +2172,9 @@ def _png_b64(arr: np.ndarray) -> str:
     return base64.b64encode(buf.getvalue()).decode()
 
 
-def _client_load(url: str, bodies: list, clients: int) -> tuple[list, float]:
+def _client_load(url: str, bodies: list, clients: int) -> list:
     """POST each body to ``url``/predict from ``clients`` threads: (status,
-    answer, seconds) per request, and the wall seconds of the whole load."""
+    answer) per request."""
     import concurrent.futures
     import urllib.error
     import urllib.request
@@ -2725,17 +2182,14 @@ def _client_load(url: str, bodies: list, clients: int) -> tuple[list, float]:
     def post(body):
         req = urllib.request.Request(url + "/predict", data=body,
                                      headers={"Content-Type": "application/json"})
-        t0 = time.perf_counter()
         try:
             with urllib.request.urlopen(req, timeout=120) as r:
-                return r.status, json.loads(r.read()), time.perf_counter() - t0
+                return r.status, json.loads(r.read())
         except urllib.error.HTTPError as e:
-            return e.code, json.loads(e.read()), time.perf_counter() - t0
+            return e.code, json.loads(e.read())
 
     with concurrent.futures.ThreadPoolExecutor(clients) as pool:
-        t0 = time.perf_counter()
-        out = list(pool.map(post, bodies))
-        return out, time.perf_counter() - t0
+        return list(pool.map(post, bodies))
 
 
 def _raw_status(port: int, head: bytes, body: bytes = b"") -> int:
@@ -2761,8 +2215,7 @@ def phase_serve(dev: dict, model: api.CVMModel) -> dict:
     a process of their own) over three (ori_noise, fov) keys, PNGs at model
     size and a few at raw size;
     every answer against ``predict_batch`` through the plain versions; a
-    413 and a 408; then the same load under ``torch.profiler`` for the
-    card's idle share."""
+    413 and a 408."""
     import concurrent.futures
     import multiprocessing
     import threading
@@ -2797,11 +2250,6 @@ def phase_serve(dev: dict, model: api.CVMModel) -> dict:
     clients = concurrent.futures.ProcessPoolExecutor(
         1, mp_context=multiprocessing.get_context("spawn"))
 
-    def load():
-        out, wall = clients.submit(_client_load, url, bodies, SERVE_CLIENTS).result()
-        torch.cuda.synchronize()
-        return out, wall
-
     def post(i):
         return _client_load(url, [bodies[i]], 1)[0][0]
 
@@ -2815,12 +2263,13 @@ def phase_serve(dev: dict, model: api.CVMModel) -> dict:
         before = {k: (b.dispatches, b.items_served) for k, b in service.batchers.items()}
         rejections0 = service.metrics()["rejections"]
         MC.reset_launch_counts()
-        answers, wall = load()
+        answers = clients.submit(_client_load, url, bodies, SERVE_CLIENTS).result()
+        torch.cuda.synchronize()
         launches = MC.launch_counts()
         disp = {k: b.dispatches - before[k][0] for k, b in service.batchers.items()}
         served = {k: b.items_served - before[k][1] for k, b in service.batchers.items()}
         metrics = service.metrics()
-        codes = [c for c, _, _ in answers]
+        codes = [c for c, _ in answers]
         if codes.count(200) + codes.count(503) != n or not codes.count(200):
             raise AssertionError(f"serve: status codes {sorted(set(codes))}")
         # every answer against predict_batch through the plain versions
@@ -2856,25 +2305,11 @@ def phase_serve(dev: dict, model: api.CVMModel) -> dict:
         # a 413 (from the header alone) and a 408 (a body that stalls)
         big = _raw_status(port, f"POST /predict HTTP/1.1\r\nHost: x\r\nContent-Length: "
                                 f"{SERVE_MAX_BODY + 1}\r\n\r\n".encode())
-        t0 = time.perf_counter()
         stalled = _raw_status(port, b"POST /predict HTTP/1.1\r\nHost: x\r\n"
                                     b"Content-Length: 1000\r\n\r\n", b'{"grd": "')
-        stall_s = time.perf_counter() - t0
         if (big, stalled) != (413, 408):
             raise AssertionError(f"serve: oversized body {big}, stalled body {stalled}")
-
-        # the card's idle share under the same load: busy device ms over wall ms
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            _, prof_wall = load()
-        busy_ms, span_ms = _busy_ms(prof.events())
-        lat = sorted(t for c, _, t in answers if c == 200)
         info.update({
-            "seconds": wall, "requests_per_s": codes.count(200) / wall,
-            "client_latency_ms": {"p50": lat[len(lat) // 2] * 1e3,
-                                  "p95": lat[min(len(lat) - 1, int(len(lat) * 0.95))] * 1e3,
-                                  "max": lat[-1] * 1e3},
             "server_metrics": metrics, "status_503": codes.count(503),
             "rejections": metrics["rejections"] - rejections0,
             "dispatches": {json.dumps(list(k)): v for k, v in disp.items()},
@@ -2883,9 +2318,7 @@ def phase_serve(dev: dict, model: api.CVMModel) -> dict:
                          "matching_scores_fov": k2_fov},
             "checked_against_plain": checked, "prob_max_abs_err": worst_prob,
             "heading_err_deg": worst_heading, "prob_tolerance": SERVE_PROB_TOL,
-            "status_oversized": big, "status_stalled": stalled, "stall_answer_s": stall_s,
-            "profiled": {"wall_ms": prof_wall * 1e3, "busy_ms": busy_ms, "span_ms": span_ms,
-                         "idle_share": 1 - busy_ms / (prof_wall * 1e3)}})
+            "status_oversized": big, "status_stalled": stalled})
     finally:
         clients.shutdown()
         srv.shutdown()
@@ -2917,9 +2350,6 @@ QUANT_SERVE_CLIENTS, QUANT_SERVE_PER_CLIENT = 8, 6
 # the model phase's 1e-3), 0.38 of that distance; this share was set after
 # that reading.
 QUANT_FLIP_SHARE = 0.5
-INT8_RANGE = "int8_conv"      # the profiler range around each QuantConv2d call
-MATCH_KERNELS = ("match_row_kernel", "match_warp_kernel", "match_tile_kernel",
-                 "match_scores_tile_kernel")
 
 
 def _int_mm_limits() -> dict:
@@ -2985,86 +2415,12 @@ def _int8_conv_checks(qmodel: api.CVMModel, grd, sat) -> dict:
             "rows": rows}
 
 
-def _pairs_per_s(model: api.CVMModel, grd, sat, n: int = 10) -> float:
-    for _ in range(3):
-        model.predict_batch(grd, sat)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        model.predict_batch(grd, sat)
-    return BATCH * n / (time.perf_counter() - t0)
-
-
-def _quant_profile(qmodel: api.CVMModel, grd, sat, out: Path | None) -> dict:
-    """Device ms of one call's forward and readout by part, over three
-    profiled eager calls (``forward_readout``: a ``predict_batch`` replays
-    the same kernels from CUDA graphs, all under ``ccvpe::replay``, where no
-    op or range names a part): the int8 products (``aten::_int_mm``), the
-    int8 conv's other passes (quantize, pad, im2col, dequantize, bias: the
-    rest of the ``INT8_RANGE`` around each ``QuantConv2d`` call, a range
-    this profile alone puts there), K1 and K2, and everything else.  ``out``
-    None: the float32 model (no int8 parts), no table written."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    forward = TL.QuantConv2d.forward
-
-    def ranged(self, x, circular=None):
-        with record_function(INT8_RANGE):
-            return forward(self, x, circular)
-
-    TL.QuantConv2d.forward = ranged
-    try:
-        qmodel.forward_readout(grd, sat)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(3):
-                qmodel.forward_readout(grd, sat)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) / 3 * 1e3
-    finally:
-        TL.QuantConv2d.forward = forward
-    events = prof.events()
-
-    def inside(e):
-        while e is not None:
-            if e.name == INT8_RANGE:
-                return True
-            e = e.cpu_parent
-        return False
-
-    parts = {"int8_products": 0.0, "int8_passes": 0.0, "rest": 0.0}
-    for e in events:
-        if e.device_type != torch.autograd.DeviceType.CPU:
-            continue
-        for k in e.kernels:
-            if any(n in k.name for n in MATCH_KERNELS):
-                continue
-            part = ("int8_products" if e.name == "aten::_int_mm"
-                    else "int8_passes" if inside(e) else "rest")
-            parts[part] += k.duration / 3e3
-    parts["matching_K1_K2"] = sum(
-        (e.time_range.end - e.time_range.start) / 3e3 for e in events
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and any(n in e.name for n in MATCH_KERNELS))
-    busy_ms, _ = _busy_ms(events)
-    if out is not None:
-        (out / "quant_profile.txt").write_text(
-            prof.key_averages().table(sort_by="device_time_total", row_limit=60))
-    int8 = any(isinstance(m, TL.QuantConv2d) for m in qmodel.net.modules())
-    if not ((parts["int8_products"] > 0) == int8 and parts["matching_K1_K2"] > 0):
-        raise AssertionError(f"the int8 profile shows no int8 products or no K1/K2: {parts}")
-    return {"path": "eager forward_readout: the kernels predict_batch replays, without "
-                    "the graphs' launch gaps and idle",
-            "device_ms_per_call": {**parts, "total": sum(parts.values())},
-            "busy_ms_per_call": busy_ms / 3, "wall_ms_per_call_profiled": wall_ms}
-
-
 def _serve_int8(model: api.CVMModel, tmp: str) -> dict:
     """``python -m ccvpe_torch.serve --quantize int8 --calib_dir D`` through
     ``serve.main`` on 127.0.0.1, on the ``model`` phase's weights (written
     as a ``.pt``) at batch 8: 48 requests from 8 client threads (in a
     process of their own) over the three keys; every answer against the
-    served int8 model's own ``predict_batch``; requests/s; launches."""
+    served int8 model's own ``predict_batch``; launches."""
     import concurrent.futures
     import multiprocessing
     import threading
@@ -3118,14 +2474,12 @@ def _serve_int8(model: api.CVMModel, tmp: str) -> dict:
 
     serve.build_server = build_local
     thread = threading.Thread(target=run, daemon=True)
-    t0 = time.perf_counter()
     thread.start()
     clients = concurrent.futures.ProcessPoolExecutor(
         1, mp_context=multiprocessing.get_context("spawn"))
     try:
         if not ready.wait(timeout=300) or failed:
             raise AssertionError(f"serve --quantize int8 did not start: {failed}")
-        startup_s = time.perf_counter() - t0
         service, srv = started["service"], started["srv"]
         qmodel = service.model
         n_int8 = sum(isinstance(m, TL.QuantConv2d) for m in qmodel.net.modules())
@@ -3135,11 +2489,11 @@ def _serve_int8(model: api.CVMModel, tmp: str) -> dict:
         before = {k: b.dispatches for k, b in service.batchers.items()}
         MC.reset_launch_counts()
         TL.reset_int8_counts()
-        answers, wall = clients.submit(_client_load, url, bodies, QUANT_SERVE_CLIENTS).result()
+        answers = clients.submit(_client_load, url, bodies, QUANT_SERVE_CLIENTS).result()
         torch.cuda.synchronize()
         launches, int8 = MC.launch_counts(), TL.int8_counts()
         disp = {k: b.dispatches - before[k] for k, b in service.batchers.items()}
-        codes = [c for c, _, _ in answers]
+        codes = [c for c, _ in answers]
         if codes.count(200) != n:
             raise AssertionError(f"serve int8: status codes {sorted(set(codes))}")
         k1 = sum(want[k][0] * d for k, d in disp.items())
@@ -3166,10 +2520,7 @@ def _serve_int8(model: api.CVMModel, tmp: str) -> dict:
                         (got["orientation_deg"] - q.orientation_deg + 180) % 360 - 180))
         if not (worst_prob <= SERVE_PROB_TOL and worst_heading <= HEADING_TOL_DEG):
             raise AssertionError(f"serve int8: probability {worst_prob}, heading {worst_heading}")
-        lat = sorted(t for _, _, t in answers)
-        return {"requests": n, "clients": QUANT_SERVE_CLIENTS, "startup_seconds": startup_s,
-                "seconds": wall, "requests_per_s": n / wall,
-                "client_latency_ms": {"p50": lat[len(lat) // 2] * 1e3, "max": lat[-1] * 1e3},
+        return {"requests": n, "clients": QUANT_SERVE_CLIENTS,
                 "dispatches": {json.dumps(list(k)): v for k, v in disp.items()},
                 "launches": {**launches,
                              "matching_scores_prior": (want[keys[1]][1] - want[keys[0]][1])
@@ -3188,37 +2539,29 @@ def _serve_int8(model: api.CVMModel, tmp: str) -> dict:
             raise AssertionError("serve --quantize int8 did not stop")
 
 
-def phase_quant(dev: dict, model: api.CVMModel, out: Path | None
-                ) -> tuple[dict, api.CVMModel]:
+def phase_quant(dev: dict, model: api.CVMModel) -> tuple[dict, api.CVMModel]:
     """int8 post-training quantization of the ``model`` phase's VIGOR model
-    (a copy; batch 8, TF32 off unless said): ``quantize_int8`` on a seeded
-    batch (seconds); ``torch._int_mm``'s limits on this card; every int8
-    conv shape's sums against the plain version, exactly; ``predict_batch``
-    at the keys (180, 360), (36, 360) and (180, 180) through K1/K2 against
-    the plain matching (the same pixel for every sample, the ``model``
-    phase's tolerances; K1/K2 launches and int8 products counted from 0);
-    the int8 readout's distance from the float32 model's (not gated);
-    int8 against float32 pairs/s (TF32 off and on), peak GiB, device ms by
-    part; ``serve --quantize int8``'s requests/s and answers.  Returns the
-    phase's numbers and the int8 model."""
+    (a copy; batch 8, TF32 off): ``quantize_int8`` on a seeded batch;
+    ``torch._int_mm``'s limits on this card; every int8 conv shape's sums
+    against the plain version, exactly; ``predict_batch`` at the keys
+    (180, 360), (36, 360) and (180, 180) through K1/K2 against the plain
+    matching (the same pixel for every sample, the ``model`` phase's
+    tolerances; K1/K2 launches and int8 products counted from 0); the int8
+    readout's distance from the float32 model's (not gated); peak GiB;
+    ``serve --quantize int8``'s answers.  Returns the phase's checks and
+    the int8 model."""
     import copy
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t_phase = time.perf_counter()
     cfg = model.cfg
     qmodel = api.CVMModel(cfg, copy.deepcopy(model.net), model.device)
-    calib = [_images(cfg, 2, seed=50)]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    qmodel.quantize_int8(calib)
-    torch.cuda.synchronize()
-    calib_s = time.perf_counter() - t0
+    qmodel.quantize_int8([_images(cfg, 2, seed=50)])
     mods = [m for m in qmodel.net.modules() if isinstance(m, TL.QuantConv2d)]
     if any(m.weight.device != next(model.net.parameters()).device for m in mods):
         raise AssertionError("quantize_int8 left int8 convs off the model's device")
     info = {"phase": "quant", "card": dev["nvidia_smi"], "preset": cfg.name, "batch": BATCH,
-            "calibration_pairs": 2, "calibration_seconds": calib_s, "int8_convs": len(mods),
+            "calibration_pairs": 2, "int8_convs": len(mods),
             "quantized_fraction": TQ.quantized_fraction(qmodel.net),
             "int_mm_limits": _int_mm_limits()}
     grd, sat = _images(cfg, BATCH, seed=60)
@@ -3280,15 +2623,6 @@ def phase_quant(dev: dict, model: api.CVMModel, out: Path | None
                           - launches[(180.0, 360.0)][1],
                           "matching_scores_fov": launches[(180.0, 180.0)][1]})
 
-    # int8 against float32 in turns (f32, int8, int8, f32), TF32 off and on
-    timing = {}
-    for label, tf32 in (("tf32_off", False), ("cudnn_tf32_default", True)):
-        torch.backends.cudnn.allow_tf32 = tf32
-        f1, q1 = _pairs_per_s(model, grd, sat), _pairs_per_s(qmodel, grd, sat)
-        q2, f2 = _pairs_per_s(qmodel, grd, sat), _pairs_per_s(model, grd, sat)
-        timing[label] = {"float32_pairs_per_s": [f1, f2], "int8_pairs_per_s": [q1, q2],
-                         "int8_over_float32": (q1 + q2) / (f1 + f2)}
-    torch.backends.cudnn.allow_tf32 = False
     peak = {}
     for label, m in (("float32", model), ("int8", qmodel)):
         torch.cuda.synchronize()
@@ -3297,15 +2631,12 @@ def phase_quant(dev: dict, model: api.CVMModel, out: Path | None
         m.predict_batch(grd, sat)
         peak[label] = {"peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                        "above_resident_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30}
-    info.update(timing=timing, peak=peak, profile={
-        "int8": _quant_profile(qmodel, grd, sat, out),
-        "float32": _quant_profile(model, grd, sat, None)})
+    info["peak"] = peak
     del plain
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="ccvpe_smoke_quant_") as tmp:
         info["serve"] = _serve_int8(model, tmp)
-    info["seconds"] = time.perf_counter() - t_phase
     emit(info)
     return info, qmodel
 
@@ -3330,7 +2661,6 @@ def phase_visualize(dev: dict, model: api.CVMModel, roots: dict) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t0 = time.perf_counter()
     nets = {"VIGOR": model.net}
     for preset in ("KITTI", "OxfordRobotCar"):
         m = api.load_model(preset=preset, seed=0)
@@ -3381,8 +2711,7 @@ def phase_visualize(dev: dict, model: api.CVMModel, roots: dict) -> dict:
     info = {"phase": "visualize", "card": dev["nvidia_smi"], "batch": 1, "dtype": "float32",
             "tolerance": {k: MODEL_TOL[k] for k in ("heatmap", "ori")},
             "render": "not run on the card (no matplotlib on its machine); tested on the CPU",
-            "results": results, "launches": launches,
-            "seconds": time.perf_counter() - t0}
+            "results": results, "launches": launches}
     emit(info)
     return info
 
@@ -3411,11 +2740,9 @@ def phase_export(dev: dict, model: api.CVMModel, qmodel: api.CVMModel) -> dict:
     .predict_batch`` exactly (row, col, heatmap, heading, probability) and
     the kernel path's at the ``model`` phase's gates; the ``quant`` phase's
     int8 model exported at batch 8 equals its own plain ``predict_batch``.
-    The export traces the plain matching (no K1/K2 launch) by design.
-    Export seconds, exported and ``predict_batch`` pairs/s."""
+    The export traces the plain matching (no K1/K2 launch) by design."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t_phase = time.perf_counter()
     cfg = model.cfg
     info = {"phase": "export", "card": dev["nvidia_smi"], "preset": cfg.name,
             "dtype": "float32", "matching": "plain (the export traces no kernel launch)",
@@ -3426,13 +2753,9 @@ def phase_export(dev: dict, model: api.CVMModel, qmodel: api.CVMModel) -> dict:
                                       ("int8", qmodel, BATCH, (BATCH,))):
             plain = api.CVMModel(cfg, m.net, m.device, matching_impl="plain")
             path = f"{tmp}/{tag}_{batch}"
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             api.export_model(m, path, batch=batch)
-            export_s = time.perf_counter() - t0
             exported = api.load_exported(path)
-            run = {"export_seconds": export_s, "files": sorted(os.listdir(path)),
-                   "checks": {}}
+            run = {"files": sorted(os.listdir(path)), "checks": {}}
             for b in served:
                 grd, sat = _images(cfg, b, seed=70 + b)
                 MC.reset_launch_counts()
@@ -3447,16 +2770,10 @@ def phase_export(dev: dict, model: api.CVMModel, qmodel: api.CVMModel) -> dict:
                     "vs_kernel": _same_poses(name, got,
                                              m.predict_batch(grd, sat, return_heatmap=True),
                                              exact=False)}
-            if batch == BATCH:
-                grd, sat = _images(cfg, BATCH, seed=80)
-                run["exported_pairs_per_s"] = _pairs_per_s(exported, grd, sat)
-                run["predict_batch_pairs_per_s"] = _pairs_per_s(m, grd, sat)
-                run["plain_predict_batch_pairs_per_s"] = _pairs_per_s(plain, grd, sat)
             info["runs"][f"{tag} batch={batch}"] = run
             del exported, plain
             gc.collect()
             torch.cuda.empty_cache()
-    info["seconds"] = time.perf_counter() - t_phase
     emit(info)
     return info
 
@@ -3481,16 +2798,13 @@ def phase_backbones(dev: dict) -> dict:
     twice the CPU's own float32 distance from it where that is larger (B6's
     and B7's 45 and 55 blocks of float32 rounding reach the file's
     tolerance on the CPU itself); the distance from the CPU's float32 is
-    printed beside it.  ms per forward; peak GiB, and above what was
-    resident before the forwards (the weights, the input and what earlier
-    phases left)."""
+    printed beside it."""
     import copy
 
     from ccvpe_torch.nn import efficientnet as TE
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t_phase = time.perf_counter()
     rows = []
     for i, name in enumerate(f"b{k}" for k in range(1, 8)):
         res = TE.EFFICIENTNET_PARAMS[f"efficientnet-{name}"][2]
@@ -3516,12 +2830,6 @@ def phase_backbones(dev: dict) -> dict:
             raise AssertionError(f"{name}: the card is {card_ratio} x BACKBONE_TOL from the CPU's "
                                  f"float64 forward, over its bar {bar}")
         del cpu
-        with torch.no_grad():
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            fwd_ms = time_ms(lambda: net(x), reps=10, warmup=2)
-            peak = torch.cuda.max_memory_allocated()
         rows.append({"backbone": name, "resolution": res, "blocks": len(net._blocks),
                      "params": sum(p.numel() for p in net.parameters()),
                      "head": list(feat.shape),
@@ -3529,25 +2837,24 @@ def phase_backbones(dev: dict) -> dict:
                                                    for a, b in zip(got, [f32, *ms32])),
                      "tol_ratio_vs_cpu_f32": _tol_ratio(got, [f32, *ms32]),
                      "tol_ratio_vs_cpu_f64": card_ratio, "cpu_f32_tol_ratio_vs_f64": cpu_ratio,
-                     "bar": bar, "ms_per_forward": fwd_ms, "peak_gib": peak / 2 ** 30,
-                     "above_resident_gib": (peak - base) / 2 ** 30})
+                     "bar": bar})
         del net, x, feat, ms
         gc.collect()
         torch.cuda.empty_cache()
     info = {"phase": "backbones", "card": dev["nvidia_smi"], "batch": 2, "dtype": "float32",
-            "tolerance": BACKBONE_TOL, "rows": rows, "seconds": time.perf_counter() - t_phase}
+            "tolerance": BACKBONE_TOL, "rows": rows}
     emit(info)
     return info
 
 
 def kernels_line(kern: dict, model: dict, presets: dict, train: dict, data: dict, cli: dict,
-                 dev: dict, options: dict | None = None, serve: dict | None = None,
+                 options: dict | None = None, serve: dict | None = None,
                  quant: dict | None = None, parallel: dict | None = None,
-                 visual: dict | None = None, conv: dict | None = None,
-                 timing: dict | None = None) -> list[dict]:
-    """The rows of the ``kernels`` line: each kernel's times at its shapes
-    (phase ``kernels``, ``model_presets``) and its launches on each main
-    path, each counted from 0 just before that path ran."""
+                 visual: dict | None = None, conv: dict | None = None) -> list[dict]:
+    """The rows of the ``kernels`` line: each kernel's largest error at its
+    checked shapes (phase ``kernels``, ``model_presets``, ``conv``) and its
+    launches on each main path, each counted from 0 just before that path
+    ran."""
     summary = kern["summary"]
     per = model["launches_per_setting"]   # (K1, K2) per setting
     by_path = {"predict_batch": model["launches"]["matching_epilogue"],
@@ -3572,7 +2879,6 @@ def kernels_line(kern: dict, model: dict, presets: dict, train: dict, data: dict
     summary[0]["launches"] = sum(by_path.values())
     summary[0]["launches_by_path"] = by_path
     summary[0]["backward"] = "autograd through the plain version"
-    summary[0]["backward_ms_per_train_step"] = train["profile"]["device_ms"]["matching_backward"]
     k2_prior = per[json.dumps(dict(ori_noise=36.0))][1]
     k2_fov = per[json.dumps(dict(fov=180.0))][1]
     if k2_prior + k2_fov != model["launches"]["matching_scores"]:
@@ -3589,17 +2895,17 @@ def kernels_line(kern: dict, model: dict, presets: dict, train: dict, data: dict
                                       "cli_eval_VIGOR": cli_k["cli_eval_VIGOR_fov180"]["K2"]}
     for row in summary[1:3]:
         row["launches"] = sum(row["launches_by_path"].values())
-    # the KITTI and Oxford forwards: each kernel's row sums its times at the
-    # preset's shapes (one all-bin forward) and counts its launches over the
-    # preset's settings; the error is the model's stacks, kernel vs plain
+    # the KITTI and Oxford forwards: each kernel's row lists its layouts at
+    # the preset's shapes (one all-bin forward) and counts its launches over
+    # the preset's settings; the error is the model's stacks, kernel vs plain
     for preset, p in presets["presets"].items():
         stacks = max(r["max_abs_err"]["stacks"] for r in p["results"])
         for kernel, name, replaces in (("K1", "matching_epilogue", K1_REPLACES),
                                        ("K2", "matching_scores", K2_REPLACES)):
-            rows = [r for r in p["times"] if r["kernel"] == kernel]
+            rows = [r for r in p["shapes"] if r["kernel"] == kernel]
             if not rows:
                 continue
-            row = _summary(f"{name} ({kernel}), {preset}", rows, replaces, dev)
+            row = _summary(f"{name} ({kernel}), {preset}", rows, replaces)
             row["launches_by_path"] = {
                 "predict_batch": sum(r["launches"][name] for r in p["results"]),
                 f"cli_{preset}": cli_k[f"cli_{preset}"][kernel]}
@@ -3681,9 +2987,9 @@ def kernels_line(kern: dict, model: dict, presets: dict, train: dict, data: dict
                 by_path["visualize"] = by_path.get("visualize", 0) + counts[name]
         for row in summary:
             row["launches"] = sum(row["launches_by_path"].values())
-    # the decoders' 3x3 convs: their times summed over a call's 24 shapes
-    # (phase ``conv``; the backward's dgrad and wgrad beside them), launches
-    # counted on each predict_batch; a train step's by pass (phase ``train``)
+    # the decoders' 3x3 convs: their checks over a call's 24 shapes (phase
+    # ``conv``; the backward's dgrad and wgrad beside them), launches counted
+    # on each predict_batch; a train step's by pass (phase ``train``)
     if conv is not None:
         oxford = sum(r["conv_launches"] for r in presets["presets"]["OxfordRobotCar"]["results"])
         paths = {"VIGOR": {"predict_batch": sum(model["conv_launches_per_setting"]),
@@ -3692,23 +2998,15 @@ def kernels_line(kern: dict, model: dict, presets: dict, train: dict, data: dict
                      r["conv_launches"] for r in presets["presets"]["KITTI"]["results"])}}
         for preset, by_path in paths.items():
             c = conv["presets"][preset]
-            row = {"name": f"conv3x3 (decoder 3x3 convs), {preset}", "route": "cuda",
-                   "source": CONV_SOURCE, "replaces": CONV_REPLACES, "dtype": "float32",
-                   "max_rel_err": c["max_rel_err"], "ms": c["ms"], "kernel_ms": c["ms"],
-                   "plain_ms": c["library_ms"], "library_ms": c["library_ms"],
-                   "library_search_ms": c["library_search_ms"], "bound_ms": c["bound_ms"],
-                   "bound_by": c["bound_by"], "tflops": c["tflops"],
-                   "timed_at": f"sum over the 24 decoder convs of a batch-{BATCH} call",
-                   "plans": [r["launch"]["plan"] for r in c["rows"]],
-                   "launches_by_path": by_path, "launches": sum(by_path.values()),
-                   "launches_train_step": train["conv_launches_per_step"],
-                   **{k: c[k] for k in BACKWARD_KEYS},
-                   "max_backward_rel_err": c["max_backward_rel_err"]}
-            if preset == "VIGOR" and timing is not None:
-                row["main_path_ms_per_call"] = timing["profile"]["conv_kernels_ms_per_call"]
-                row["main_path_launches_per_call"] = timing["profile"][
-                    "conv_kernel_launches_per_call"]
-            summary.append(row)
+            summary.append({
+                "name": f"conv3x3 (decoder 3x3 convs), {preset}", "route": "cuda",
+                "source": CONV_SOURCE, "replaces": CONV_REPLACES, "dtype": "float32",
+                "max_rel_err": c["max_rel_err"],
+                "max_backward_rel_err": c["max_backward_rel_err"],
+                "checked_at": f"the 24 decoder convs of a batch-{BATCH} call",
+                "plans": [r["launch"]["plan"] for r in c["rows"]],
+                "launches_by_path": by_path, "launches": sum(by_path.values()),
+                "launches_train_step": train["conv_launches_per_step"]})
     idle = [(row["name"], path) for row in summary
             for path, n in row["launches_by_path"].items() if not n]
     if idle:
@@ -3723,7 +3021,7 @@ def _deadline(signum, frame):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
-                    help="also write the ptxas report, all numbers and the profile here")
+                    help="also write the ptxas report and every check of the run here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; this smoke runs on the GPU only",
@@ -3736,11 +3034,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     dev = phase_device()
     phase_build(args.out)
-    kern = phase_kernels(dev)
+    kern = phase_kernels()
     conv = phase_conv(dev)
-    model, net = phase_model(dev)
+    model, net = phase_model()
     presets = phase_model_presets(dev)
-    train = phase_train(dev, args.out)
+    train = phase_train(dev)
     options = phase_train_options(dev)
     with tempfile.TemporaryDirectory(prefix="ccvpe_smoke_roots_") as tmp:
         roots = write_roots(tmp)
@@ -3748,21 +3046,20 @@ def main(argv=None) -> int:
         cli = phase_cli(dev, roots)
         visual = phase_visualize(dev, net, roots)
     parallel = phase_parallel(dev, net)
-    timing = phase_timing(dev, net, args.out)
     serve = phase_serve(dev, net)
-    quant, qmodel = phase_quant(dev, net, args.out)
+    quant, qmodel = phase_quant(dev, net)
     export = phase_export(dev, net, qmodel)
     del qmodel
     backbones = phase_backbones(dev)
-    summary = kernels_line(kern, model, presets, train, data, cli, dev, options, serve, quant,
-                           parallel, visual, conv, timing)
+    summary = kernels_line(kern, model, presets, train, data, cli, options, serve, quant,
+                           parallel, visual, conv)
     if args.out is not None:
         (args.out / "chip_smoke.json").write_text(json.dumps(
             {"device": dev, "kernels": {k: v for k, v in kern.items() if k != "max_err"},
              "conv": conv, "model": model, "model_presets": presets, "train": train,
-             "train_options": options, "data": data, "cli": cli, "timing": timing,
-             "serve": serve, "quant": quant, "parallel": parallel, "visualize": visual,
-             "export": export, "backbones": backbones,
+             "train_options": options, "data": data, "cli": cli, "serve": serve,
+             "quant": quant, "parallel": parallel, "visualize": visual, "export": export,
+             "backbones": backbones,
              "seconds": time.perf_counter() - t0}, indent=1))
     emit({"kernels": summary})
     print(dev["nvidia_smi"], flush=True)

@@ -36,7 +36,6 @@ def _inputs(dev, b, hw, cs, cg, seed, dtype=torch.float32):
     return x, g
 
 
-@pytest.mark.parametrize("layout", ["warp", "row"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cs,shift,offsets,hw", [
     (1280, 64, range(20), (8, 8)),
@@ -45,11 +44,11 @@ def _inputs(dev, b, hw, cs, cg, seed, dtype=torch.float32):
     (1280, 64, range(20), (41, 41)),
     (320, 16, range(20), (66, 66)),
 ])
-def test_epilogue_kernel_matches_plain(dev, layout, dtype, cs, shift, offsets, hw):
+def test_epilogue_kernel_matches_plain(dev, dtype, cs, shift, offsets, hw):
     x, g = _inputs(dev, 2, hw, cs, cs, seed=cs, dtype=dtype)
     x[1, 0, 0] = 0
     before = MC.launch_counts()["matching_epilogue"]
-    got = MC.launch_matching_epilogue(x, g, shift, tuple(offsets), "first", layout)
+    got = MC.launch_matching_epilogue(x, g, shift, tuple(offsets), "first", "warp")
     torch.cuda.synchronize()
     assert MC.launch_counts()["matching_epilogue"] == before + 1
     want = TM.matching_epilogue_plain(x.float(), g.float(), shift, offsets)
@@ -59,7 +58,6 @@ def test_epilogue_kernel_matches_plain(dev, layout, dtype, cs, shift, offsets, h
         torch.testing.assert_close(a.float(), b, **tol)
 
 
-@pytest.mark.parametrize("layout", ["warp", "row"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cs,cg,shift,offsets,window", [
     (1280, 1280, 64, range(20), "first"),
@@ -68,20 +66,41 @@ def test_epilogue_kernel_matches_plain(dev, layout, dtype, cs, shift, offsets, h
     (256, 64, 64, range(-2, 3), "first"),
     (40, 20, 2, range(20), "first"),
 ])
-def test_scores_kernel_matches_plain(dev, layout, dtype, cs, cg, shift, offsets, window):
-    if layout == "row" and not MC.row_layout_fits(cs, cg, len(offsets)):
-        with pytest.raises(ValueError, match="row layout"):
-            MC.launch_matching_scores(*_inputs(dev, 1, (2, 2), cs, cg, 0), shift,
-                                      tuple(offsets), window, layout)
-        return
+def test_scores_kernel_matches_plain(dev, dtype, cs, cg, shift, offsets, window):
     x, g = _inputs(dev, 3, (9, 7), cs, cg, seed=cs + cg, dtype=dtype)
     before = MC.launch_counts()["matching_scores"]
-    got = MC.launch_matching_scores(x, g, shift, tuple(offsets), window, layout)
+    got = MC.launch_matching_scores(x, g, shift, tuple(offsets), window, "warp")
     torch.cuda.synchronize()
     assert MC.launch_counts()["matching_scores"] == before + 1
     want = TM.matching_scores_plain(x.float(), g.float(), shift, offsets, window)
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     torch.testing.assert_close(got.float(), want, **tol)
+
+
+@pytest.mark.parametrize("cs,dtype", [(42, torch.float32), (150, torch.float32),
+                                      (36, torch.bfloat16), (100, torch.bfloat16)])
+def test_rows_of_part_granules_take_the_warp_layout(dev, cs, dtype):
+    # a row that is not whole 16-byte granules has no tile plan: the
+    # wrappers pick the warp layout by themselves at a map with enough rows
+    # for the tile, and it matches the plain version (a zero row; K2 with a
+    # masked window)
+    x, g = _inputs(dev, 2, (64, 64), cs, cs, seed=cs, dtype=dtype)
+    x[1, 0, 0] = 0
+    gm = g[:, :cs // 2].contiguous()
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    assert MC.pick_layout("matching_epilogue", x, cs, 20) == "warp"
+    assert MC.pick_layout("matching_scores", x, cs // 2, 20) == "warp"
+    before = MC.launch_counts("layout")
+    got = MC.launch_matching_epilogue(x, g, 2, tuple(range(20)), "first")
+    scores = MC.launch_matching_scores(x, gm, 2, tuple(range(20)), "first")
+    torch.cuda.synchronize()
+    after = MC.launch_counts("layout")
+    assert {k: n - before[k] for k, n in after.items() if n != before[k]} == {
+        ("matching_epilogue", "warp"): 1, ("matching_scores", "warp"): 1}
+    for a, b in zip(got, TM.matching_epilogue_plain(x.float(), g.float(), 2, range(20))):
+        torch.testing.assert_close(a.float(), b, **tol)
+    torch.testing.assert_close(
+        scores.float(), TM.matching_scores_plain(x.float(), gm.float(), 2, range(20)), **tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -187,7 +206,7 @@ def test_tile_layout_refuses_what_it_does_not_take(dev):
             MC.launch_matching_scores(xo, go[:, :cs // 2].contiguous(), 2, tuple(range(20)),
                                       "first", "tile")
     x, g = _inputs(dev, 2, (16, 16), 40, 40, seed=5)
-    with pytest.raises(ValueError, match="'warp', 'row' or 'tile'"):
+    with pytest.raises(ValueError, match="'warp' or 'tile'"):
         MC.launch_matching_scores(x, g, 2, tuple(range(20)), "first", "split")
     flat = torch.zeros(2 * 16 * 16 * 40 + 1, device=dev)
     with pytest.raises(ValueError, match="aligned"):
@@ -205,9 +224,6 @@ def test_python_plans_match_the_library(dev):
         item = torch.empty((), dtype=dtype).element_size()
         for cs in (8, 40, 80, 160, 320):
             for bins in (1, 5, 20, 21, 32):
-                assert MC.row_smem_bytes(cs, cs, bins) == lib.ccvpe_match_row_smem_bytes(cs, bins, 0)
-                assert MC.row_smem_bytes(cs, cs // 2, bins) == lib.ccvpe_match_row_smem_bytes(
-                    cs, bins, 1)
                 # K1
                 plan = MC.tile_plan((8, 64, 64, cs), bins, dtype, MC.device_limits(0))
                 for rows in MC.TILE_ROWS:

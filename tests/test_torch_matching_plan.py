@@ -198,17 +198,47 @@ def test_layout_choice_at_the_small_presets(name, batch, want, monkeypatch):
     assert got == want, calls
 
 
+@pytest.mark.parametrize("name", list(TC.PRESETS))
+def test_a_preset_map_of_many_narrow_rows_always_has_a_tile(name, monkeypatch):
+    # every matching scale of the preset at batch 1..128, float32 and
+    # bfloat16, 1, 3, 5, 7, 19 and the preset's bins, K1 and K2, and K2 also
+    # at narrower windows (Cg < Cs): the layout is warp or tile, and a map
+    # with enough rows for the tile and at most K1's widest tile's channels
+    # always has a tile plan, so no preset shape falls back to the warp
+    # layout for want of one
+    calls = _preset_calls(name, monkeypatch)
+    assert len(calls) >= 6
+    cfg = TC.PRESETS[name]
+    for _, shape, cg0, _ in calls:
+        cs = shape[-1]
+        for kernel, cg in ([("matching_epilogue", cs)] if cg0 == cs else []) + [
+                ("matching_scores", c) for c in sorted({cg0, cs, max(1, cs // 2),
+                                                        max(1, cs // 4), 1})]:
+            for bins in sorted({1, 3, 5, 7, 19, cfg.bins}):
+                for dtype in DTYPES:
+                    for batch in range(1, 129):
+                        x = (batch, *shape[1:])
+                        got = MC.choose_layout(kernel, x, cg, bins, dtype)
+                        assert got in ("warp", "tile"), (kernel, x, cg, bins, dtype)
+                        many = (batch * shape[1] * shape[2]
+                                >= MC.TILE_MIN_ROWS_PER_SM * MC.H100.sms)
+                        if many and cs <= MC.K1_TILE_MAX_CHANNELS:
+                            assert got == "tile", (kernel, x, cg, bins, dtype)
+
+
 @pytest.mark.parametrize("cs,dtype", [(42, torch.float32), (150, torch.float32),
                                       (36, torch.bfloat16), (100, torch.bfloat16)])
 def test_no_tile_where_a_row_is_not_whole_granules(cs, dtype):
     shape = (8, 128, 128, cs)
     assert MC.tile_plan(shape, 20, dtype) is None
     assert MC.tile_plan(shape, 20, dtype, kernel="matching_scores", nseg=21) is None
-    assert MC.choose_layout("matching_epilogue", shape, cs, 20, dtype) == "row"
-    assert MC.choose_layout("matching_scores", shape, cs // 2, 20, dtype) == "row"
+    assert MC.choose_layout("matching_epilogue", shape, cs, 20, dtype) == "warp"
+    assert MC.choose_layout("matching_scores", shape, cs // 2, 20, dtype) == "warp"
     for kernel in ("matching_epilogue", "matching_scores"):
         with pytest.raises(ValueError, match="tile layout"):
             MC._layout(kernel, shape, cs, 20, dtype, "tile", MC.H100)
+        with pytest.raises(ValueError, match="'warp' or 'tile'"):
+            MC._layout(kernel, shape, cs, 20, dtype, "row", MC.H100)
 
 
 def test_tile_is_k1s_alone():
@@ -229,16 +259,15 @@ def test_tile_is_k1s_alone():
     assert MC.choose_layout("matching_scores", (1, 16, 16, 40), 20, 20,
                             torch.float32) == "warp"        # few rows
     assert MC.choose_layout("matching_scores", (8, 128, 128, 42), 21, 20,
-                            torch.float32) == "row"         # 42 f32 is not whole granules
+                            torch.float32) == "warp"        # 42 f32 is not whole granules
     shape = (8, 256, 256, 40)
     assert MC._layout("matching_scores", shape, 20, 20, torch.float32, "tile",
                       MC.H100, nseg=20) == "tile"
-    assert MC._layout("matching_scores", shape, 40, 20, torch.float32, "row",
-                      MC.H100) == "row"
-    assert MC._layout("matching_epilogue", shape, 40, 20, torch.float32, "row",
-                      MC.H100) == "row"
-    with pytest.raises(ValueError, match="'warp', 'row' or 'tile'"):
-        MC._layout("matching_scores", shape, 40, 20, torch.float32, "split", MC.H100)
+    for kernel in ("matching_scores", "matching_epilogue"):
+        assert MC._layout(kernel, shape, 40, 20, torch.float32, "warp", MC.H100) == "warp"
+        for layout in ("row", "split"):
+            with pytest.raises(ValueError, match="'warp' or 'tile'"):
+                MC._layout(kernel, shape, 40, 20, torch.float32, layout, MC.H100)
 
 
 def _mask_from_segments(cs, seg):
