@@ -11,10 +11,11 @@ reads), so a profiler attaches the graph's kernels to that operator and to
 the spans around it, as it attaches the conv kernel to ``ccvpe::conv3x3``.
 
 ``count(counts, lock, key)`` is how a kernel wrapper counts a launch: on a
-thread that is capturing a graph, into that graph's tally (a capture runs
-nothing on the card); on any other, into ``counts`` under ``lock``.  Each
-replay adds its graph's tally to the counters, so they count what ran on
-the card, launched eagerly or replayed.
+thread that is capturing a graph, or into a stream that one is capturing
+(autograd's thread runs a captured backward there), into that graph's tally
+(a capture runs nothing on the card); on any other, into ``counts`` under
+``lock``.  Each replay adds its graph's tally to the counters, so they count
+what ran on the card, launched eagerly or replayed.
 """
 
 from __future__ import annotations
@@ -27,11 +28,15 @@ import weakref
 import torch
 
 _LOCAL = threading.local()
+# the tallies of the captures under way, by the stream each captures
+_CAPTURING: dict[int, dict] = {}
 
 
 def count(counts: dict, lock: threading.Lock, key) -> None:
     """One launch under ``key`` of ``counts`` (see the module docstring)."""
     tally = getattr(_LOCAL, "tally", None)
+    if tally is None and _CAPTURING:
+        tally = _CAPTURING.get(torch.cuda.current_stream().cuda_stream)
     if tally is not None:
         entry = tally.setdefault(id(counts), (counts, lock, {}))
         entry[2][key] = entry[2].get(key, 0) + 1
@@ -77,7 +82,12 @@ class Graph:
         """Capture ``fn()`` on the current device; its outputs."""
         with tallying(self.launches), torch.cuda.graph(self.graph, pool=pool,
                                                        capture_error_mode="thread_local"):
-            return fn()
+            stream = torch.cuda.current_stream().cuda_stream
+            _CAPTURING[stream] = self.launches
+            try:
+                return fn()
+            finally:
+                del _CAPTURING[stream]
 
     def replay(self, x: torch.Tensor) -> None:
         torch.ops.ccvpe.replay(x, self.handle)

@@ -25,6 +25,14 @@ and the loss normalizers are the global batch's, and the loss parts and
 ``grad_norm`` it returns are the global ones -- the numbers of one device
 at the global batch.  Without one, nothing here issues a collective.
 
+On a CUDA device, a float32 step of one process with the plain Adam, no
+accumulation and no recompute (``takes_graphs``) replays CUDA graphs: the
+first call of a ``step_signature`` runs eagerly, the next captures the
+step's forward, backward and optimizer (``GraphedStep``) and runs them, and
+later calls replay them while the tensors they read still lie where they
+did.  ``STEP_COUNTS`` counts the steps by how they ran.  Every other step
+(bfloat16, remat, ``grad_accum``, a process group, the CPU) runs eagerly.
+
 The eval steps run the forward in eval mode without autograd:
 ``make_eval_step`` returns the model's outputs, ``make_eval_readout_step``
 the per-sample pose scalars of ``ops.readout.pose_readout_from_outputs``.
@@ -36,7 +44,9 @@ normalised floats), ``gt`` [B, H, W], ``bin_weights`` [B, bins],
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import threading
 from dataclasses import dataclass, field
 
 import torch
@@ -57,6 +67,19 @@ ZERO_GRAD_RANGE = "train_step.zero_grad"
 FORWARD_RANGE = "train_step.forward"
 BACKWARD_RANGE = "train_step.backward"
 OPTIMIZER_RANGE = "train_step.optimizer"
+
+# the train steps by how they ran: eagerly, capturing a ``GraphedStep`` (and
+# running it once), or replaying one; the replayed share is the graphs' hit rate
+STEP_COUNTS = {"eager": 0, "captured": 0, "replayed": 0}
+_COUNT_LOCK = threading.Lock()
+
+# graph sets a step function keeps: each holds a private memory pool as large
+# as a step's activations (~9 GB for VIGOR at batch 8), and a caller picks the
+# batch's shape, so the least recently used set is dropped
+MAX_STEP_GRAPH_SETS = 2
+
+# the batch entries a step reads
+BATCH_KEYS = ("grd", "sat", "gt", "bin_weights", "orientation")
 
 
 @dataclass
@@ -217,6 +240,148 @@ def _grad_norm(grads: list[torch.Tensor]) -> torch.Tensor:
     return torch.nn.utils.get_total_norm(grads)
 
 
+def step_counts() -> dict[str, int]:
+    with _COUNT_LOCK:
+        return dict(STEP_COUNTS)
+
+
+def _count_step(kind: str) -> None:
+    with _COUNT_LOCK:
+        STEP_COUNTS[kind] += 1
+
+
+def takes_graphs(state: TrainState, grad_accum: int, remat, compute_dtype) -> bool:
+    """Whether a step of ``make_train_step`` runs as CUDA graphs
+    (``GraphedStep``): float32 compute on float32 parameters on a CUDA
+    device, one process, no accumulation and no recompute, and the plain
+    ``torch.optim.Adam`` of ``make_optimizer``."""
+    return (compute_dtype == torch.float32 and grad_accum == 1 and not remat
+            and type(state.optimizer) is torch.optim.Adam and not mesh.is_distributed()
+            and all(p.device.type == "cuda" and p.dtype == torch.float32
+                    for p in state.model.parameters()))
+
+
+def step_signature(batch: dict, generator: torch.Generator | None,
+                   optimizer: torch.optim.Optimizer) -> tuple:
+    """What fixes a graphed step besides the tensors it reads: the batch's
+    shapes, dtypes and device, the drop-connect generator (None: off),
+    Adam's hyperparameters, and cuDNN's and cuBLAS's TF32, determinism and
+    benchmark flags (a capture keeps the kernels and numbers it was given)."""
+    return (tuple((k, tuple(batch[k].shape), batch[k].dtype, batch[k].device)
+                  for k in BATCH_KEYS),
+            None if generator is None else id(generator),
+            tuple(tuple((k, v) for k, v in g.items() if k != "params")
+                  for g in optimizer.param_groups),
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+
+
+def _addresses(model: cvm.CVM, optimizer: torch.optim.Optimizer) -> tuple:
+    """Where the tensors that a graphed step reads and updates in place lie
+    (the parameters, with whether each takes a gradient; the buffers, BN's
+    statistics; the optimizer's state)."""
+    return (tuple((p.data_ptr(), p.requires_grad) for p in model.parameters()),
+            tuple(b.data_ptr() for b in model.buffers()),
+            tuple(v.data_ptr() for s in optimizer.state.values() for v in s.values()
+                  if isinstance(v, torch.Tensor)))
+
+
+def _capturable(optimizer: torch.optim.Optimizer) -> None:
+    """Adam's update from step counts on the device (``capturable``), which a
+    graph can replay; the eager steps of the graphed route take it too, so
+    that both run one formula.  Counts loaded onto the host (a state saved
+    without it) move to their parameter's device."""
+    for group in optimizer.param_groups:
+        if not group["capturable"]:
+            group["capturable"] = True
+            for p in group["params"]:
+                s = optimizer.state.get(p)
+                if s and "step" in s:
+                    s["step"] = s["step"].to(p.device, torch.float32)
+    # those eager steps are the graphs' warm-up, of which torch would warn
+    optimizer._warned_capturable_if_run_uncaptured = True
+
+
+class GraphedStep:
+    """A train step at one ``step_signature`` as three CUDA graphs captured
+    in turn into one private memory pool: the forward with the losses, the
+    backward, and the gradient norm with Adam.  Built from a call's batch,
+    which becomes the static inputs; ``run`` copies a later batch into them
+    and replays each graph inside the span its eager code opens
+    (``ops.graphs``: the operator ``ccvpe::replay``), then copies the loss
+    parts and the gradient norm out.
+
+    The graphs read and update the caller's tensors where they lay at the
+    capture: the parameters, BN's statistics and Adam's state (its step
+    counts on the device), each changed in place by a replay as by an eager
+    step; the drop-connect generator is registered with the forward, so a
+    replay draws what an eager step would and advances it as far.  The
+    gradients are the backward graph's outputs, in the pool: ``run`` points
+    ``p.grad`` at them, and they hold the step's gradients until the next
+    step.  ``matches`` tells whether a state still lies where it was
+    captured."""
+
+    def __init__(self, state: TrainState, batch: dict, generator: torch.Generator | None,
+                 forward):
+        from ..ops.graphs import Graph
+
+        model, optimizer = state.model, state.optimizer
+        # held, so that no other generator takes its id in the signature
+        self.model, self.optimizer, self.generator = model, optimizer, generator
+        self.params = list(model.parameters())
+        self.batch = {k: batch[k].clone() for k in BATCH_KEYS}
+        self.graphs = Graph(), Graph(), Graph()
+        fwd, bwd, opt = self.graphs
+        if generator is not None:
+            fwd.graph.register_generator_state(generator)
+        pool = torch.cuda.graph_pool_handle()
+        # the backward then allocates the gradients in the pool
+        optimizer.zero_grad(set_to_none=True)
+        with torch.cuda.device(self.params[0].device), _mode(model, True):
+            loss, parts = fwd.capture(lambda: forward(model, self.batch, generator), pool)
+            bwd.capture(loss.backward, pool)
+            # every tensor a graph reads or writes stays held, since replays use
+            # it where it lies; detached, so that no autograd node outlives the
+            # capture (an eager step would find its stream stale)
+            self.loss = loss.detach()
+            self.parts = {k: v.detach() for k, v in parts.items()}
+            del loss, parts
+
+            def update():
+                norm = _grad_norm([p.grad for p in self.params if p.grad is not None])
+                optimizer.step()
+                return torch.stack([*self.parts.values(), norm])
+
+            self.out = opt.capture(update, pool)
+        self.keys = (*self.parts, "grad_norm")
+        self.grads = [p.grad for p in self.params]
+        self.addresses = _addresses(model, optimizer)
+
+    def matches(self, state: TrainState) -> bool:
+        return (state.model is self.model and state.optimizer is self.optimizer
+                and _addresses(state.model, state.optimizer) == self.addresses)
+
+    def run(self, batch: dict) -> dict[str, torch.Tensor]:
+        """One step on ``batch``; the loss parts and ``grad_norm``, fresh."""
+        fwd, bwd, opt = self.graphs
+        with annotate(ZERO_GRAD_RANGE):
+            # the gradients are the backward graph's, whatever a caller or
+            # another step left in ``p.grad``
+            for p, g in zip(self.params, self.grads):
+                if p.grad is not g:
+                    p.grad = g
+        with annotate(FORWARD_RANGE):
+            for k, v in self.batch.items():
+                v.copy_(batch[k])
+            fwd.replay(self.batch["grd"])
+        with annotate(BACKWARD_RANGE):
+            bwd.replay(self.loss)
+        with annotate(OPTIMIZER_RANGE):
+            opt.replay(self.out)
+            out = self.out.clone()
+        return dict(zip(self.keys, out.unbind()))
+
+
 def _runner(state: TrainState):
     """What the step calls: the model, or under a process group its DDP
     wrapper (made once, then kept on the state); an FSDP2 model does its
@@ -274,9 +439,60 @@ def make_train_step(cfg: cvm.CVMConfig, *, weight_info_nce: float = 1e4,
     ``CVM.forward`` takes it.  ``remat``: False, True/'all', 'encoder' or
     'decoder' (``models.cvm.remat_scopes``).  ``compute_dtype``: the dtype
     the images are cast to, and so the forward's and backward's; the loss
-    parts stay float32."""
+    parts stay float32.
+
+    Where ``takes_graphs`` holds, the step sets Adam ``capturable`` and
+    runs as CUDA graphs: a ``step_signature``'s first call runs eagerly, the
+    call after it captures a ``GraphedStep`` and runs it, later calls replay
+    it (the step function keeps the ``MAX_STEP_GRAPH_SETS`` most recently
+    used); a set whose tensors no longer lie where they were captured
+    (``optimizer.load_state_dict``, a checkpoint resumed, ``p.data = ...``)
+    is dropped, and its signature warms up and captures again.  The parts
+    returned are fresh tensors either way."""
     cvm.remat_scopes(remat)
     compute_dtype = as_dtype(compute_dtype)
+    # by step_signature, least recently used first; at most MAX_STEP_GRAPH_SETS
+    sets: collections.OrderedDict[tuple, GraphedStep] = collections.OrderedDict()
+    # the signature, model and optimizer of the last call, if it was a warm-up
+    warm: list = [None]
+
+    def forward(runner, mb: dict, generator: torch.Generator | None):
+        out = runner(mb["grd"].to(compute_dtype), mb["sat"].to(compute_dtype),
+                     matching_impl=matching_impl, generator=generator, remat=remat)
+        return losses.total_loss(
+            out, mb["gt"], mb["bin_weights"], mb["orientation"],
+            weight_info_nce=weight_info_nce, weight_ori=weight_ori,
+            global_mean=mesh.all_reduce_mean if mesh.is_distributed() else None)
+
+    def graphed(state: TrainState, batch: dict, generator: torch.Generator | None):
+        """The step replayed, or captured and run; None where this call is a
+        signature's eager warm-up (its first, or its first since its set
+        was dropped or since another signature ran)."""
+        _capturable(state.optimizer)
+        key = step_signature(batch, generator, state.optimizer)
+        last, warm[0] = warm[0], None
+        found = sets.get(key)
+        if found is not None:
+            if found.matches(state):
+                sets.move_to_end(key)
+                _count_step("replayed")
+                return found.run(batch)
+            del sets[key]
+        trained = [p for p in state.model.parameters() if p.grad is not None]
+        # a capture records Adam's update of the state it finds: the warm-up
+        # made it for every parameter with a gradient
+        if (last is None or last[0] != key or last[1] is not state.model
+                or last[2] is not state.optimizer or not trained
+                or not all(p in state.optimizer.state for p in trained)):
+            warm[0] = (key, state.model, state.optimizer)
+            return None
+        if len(sets) >= MAX_STEP_GRAPH_SETS:
+            # dropped before the capture, whose start empties the allocator's
+            # cache, so the dropped set's pool goes back to the card first
+            sets.popitem(last=False)
+        sets[key] = made = GraphedStep(state, batch, generator, forward)
+        _count_step("captured")
+        return made.run(batch)
 
     def train_step(state: TrainState, batch: dict, generator: torch.Generator | None = None
                    ) -> dict[str, torch.Tensor]:
@@ -293,6 +509,12 @@ def make_train_step(cfg: cvm.CVMConfig, *, weight_info_nce: float = 1e4,
                 f"{grad_accum}) does not divide the {world}-device mesh; grouped-conv "
                 f"gradients would mis-reduce — use a batch with batch % (mesh * "
                 f"grad_accum) == 0")
+        if takes_graphs(state, grad_accum, remat, compute_dtype):
+            parts = graphed(state, batch, generator)
+            if parts is not None:
+                state.step += 1
+                return parts
+        _count_step("eager")
         with annotate(ZERO_GRAD_RANGE):
             state.optimizer.zero_grad(set_to_none=True)
         runner = _runner(state)
@@ -303,13 +525,7 @@ def make_train_step(cfg: cvm.CVMConfig, *, weight_info_nce: float = 1e4,
                 mb = {k: v[j::grad_accum] for k, v in batch.items()}
                 with _no_sync(runner, j == grad_accum - 1):
                     with annotate(FORWARD_RANGE):
-                        out = runner(mb["grd"].to(compute_dtype), mb["sat"].to(compute_dtype),
-                                     matching_impl=matching_impl, generator=generator,
-                                     remat=remat)
-                        loss, parts = losses.total_loss(
-                            out, mb["gt"], mb["bin_weights"], mb["orientation"],
-                            weight_info_nce=weight_info_nce, weight_ori=weight_ori,
-                            global_mean=mesh.all_reduce_mean if distributed else None)
+                        loss, parts = forward(runner, mb, generator)
                     with annotate(BACKWARD_RANGE):
                         (loss / grad_accum).backward()
                 for k, v in parts.items():

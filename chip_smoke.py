@@ -49,7 +49,9 @@ port is measured by ``portbench/``.  Phases, each printing one JSON line:
    step through the plain versions (loss parts, every gradient, the new BN
    statistics; 6 K1 launches, 3 tile and 3 warp); (b) seven steps with
    drop-connect (finite losses, everything moved, peak memory, 24 forward,
-   24 dgrad and 24 wgrad launches of the decoder conv kernels a step);
+   24 dgrad and 24 wgrad launches of the decoder conv kernels a step; the
+   step's CUDA graphs captured once and replayed by every later step,
+   ``train.loop.STEP_COUNTS``);
    (c) one NANO step on the card against the CPU.
    train_options: the training options on the same VIGOR step (batch 8,
    TF32 off): (a) one bfloat16 step through K1 against the same step
@@ -946,8 +948,15 @@ def phase_train(dev: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     MC.reset_launch_counts()
     passes0 = CC.pass_counts()
+    steps0 = TLOOP.step_counts()
     step_parts = [k_step(state, _normalized(data), gen) for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
+    # a warm-up, a capture, then replays of the step's CUDA graphs
+    steps = {k: v - steps0[k] for k, v in TLOOP.step_counts().items()}
+    if (steps["captured"] < 1 or sum(steps.values()) != TRAIN_STEPS
+            or steps["replayed"] != TRAIN_STEPS - steps["captured"] - steps["eager"]):
+        raise AssertionError(f"{TRAIN_STEPS} train steps ran {steps}: want a capture and "
+                             "the rest replayed")
     launches = MC.launch_counts()
     if launches != {"matching_epilogue": 6 * TRAIN_STEPS, "matching_scores": 0}:
         raise AssertionError(f"{TRAIN_STEPS} train steps launched {launches}")
@@ -972,7 +981,8 @@ def phase_train(dev: dict) -> dict:
             "dtype": "float32", "tolerance": TRAIN_TOL,
             "kernel_vs_plain": {**check, "launches_by_layout": {
                 f"{k} {lay}": n for (k, lay), n in k_layouts.items()}},
-            "steps": TRAIN_STEPS, "launches": launches, "conv_launches_per_step": passes,
+            "steps": TRAIN_STEPS, "step_counts": steps, "launches": launches,
+            "conv_launches_per_step": passes,
             "losses": loss_values,
             "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     emit({k: v for k, v in info.items() if k != "losses"})
