@@ -56,6 +56,8 @@ def _angle_diff(a, b):
     (36.0, 360.0, False),
     (180.0, 180.0, True),
     (36.0, 360.0, True),
+    (36.0, 180.0, False),
+    (36.0, 180.0, True),
 ])
 def test_predict_batch_matches_jax(models, ori_noise, fov, return_heatmap):
     jmodel, tmodel = models
