@@ -17,50 +17,71 @@
 // What bounds them on the H100: the FFMA rate (67 TFLOP/s at 1980 MHz; no
 // tensor cores in float32) for every decoder shape but the last 512x512
 // convs to Cout 1 and 2, which are bound by device-memory bytes (134 MB of
-// input at batch 8 for 1.2 GFLOP at most).
+// input at batch 8 for 1.2 GFLOP at most).  So the design keeps the FFMA
+// pipes fed: the math warps issue FFMAs and shared-memory reads, and almost
+// nothing else.
 //
-// conv3x3_gemm_kernel: an implicit GEMM.  M = B*H*W output pixels, N =
-// Cout, K = 9 * Cin; C[m][n] = sum_k A[m][k] B[k][n], with A[m][k] the input
-// pixel under one tap of pixel m (zero outside the image) and B the weight,
+// Both GEMM kernels are implicit GEMMs: M = B*H*W output pixels, N = Cout,
+// K = 9 * Cin; C[m][n] = sum_k A[m][k] B[k][n], with A[m][k] the input pixel
+// under one tap of pixel m (zero outside the image) and B the weight,
 // repacked by the wrapper at each call to [K][N] (N zero-padded to the
-// plan's BN; one copy, a few hundredths of the conv's time).
-//   * K runs in slabs of BK = 8 channels of one tap: the nine taps of a
-//     chunk of 8 channels, then the next chunk (Cin zero-padded to a whole
-//     chunk).  A slab is one tap for the whole block, and the input rows
-//     that the nine taps of a chunk read are the same few, so they come
-//     from L1 after the first (all copies are cp.async.ca);
-//   * a block computes a BM x BN tile of C; its threads each hold 8 x TN
-//     float32 accumulators in registers (TN = 8 or 4), so one k step of a
-//     thread is 8*TN FFMAs against 2 + TN/4 float4 reads of shared memory:
-//     the inner loop is FFMA but for about 6 % (8x8) of loads;
-//   * the A and B slabs go through a ring of three stages in dynamic shared
-//     memory, the copies of slab s+2 in flight while slab s is computed.  A
-//     tap outside the image zero-fills (cp.async's src-size 0); each copied
-//     row's 9-bit tap validity is computed once per block;
-//   * A's layout is the plan's: k-major ([BK][BM + 4]) from 4-byte copies,
-//     a warp's lanes running over the channels of a pixel first (whole
-//     32-byte sectors of x); or, where Cin is a multiple of 4, m-major
-//     ([BM][BK + 4]) from 16-byte copies, a quarter of the copy
-//     instructions, which the narrow tiles need (their A tile feeds few
-//     columns, so its copies weigh more).  The padding of both layouts
-//     spreads a quarter warp's reads and copies over the banks.  B is
-//     copied in 16-byte granules;
-//   * lanes of a warp cover 4 (or 8) thread rows x 8 (or 4) thread
-//     columns; a thread's columns are tn*4 + {0..3} (+ BN/2 at TN = 8), its
-//     rows tm*4 + {0..3} + {0, BM/2} (k-major) or tm + i*BM/8 (m-major),
-//     so the float4 reads of a quarter warp hit distinct banks or broadcast;
+// plan's BN; one copy, a few hundredths of the conv's time).  K runs in
+// chunks of kBK = 8 channels, the nine taps of a chunk in turn, the chunk's
+// channels in order within a tap (Cin zero-padded to a whole chunk), so each
+// output sums its products in the order chunk -> tap -> channel.
+//
+// conv3x3_halo_kernel, every shape whose Cin is a multiple of 4 (every
+// decoder conv to Cout > 2, forward and dgrad):
+//   * a block computes the outputs of a TH x TW tile of one image's pixels
+//     for BN output channels;
+//   * for each chunk of channels, one TMA tile load brings the tile's input
+//     with its one-pixel halo, (TH+2) x (TW+2) x 8 floats of the NHWC x (a
+//     4-D tensor map [B][H][W][Cin], the box at (y0-1, x0-1)), into shared
+//     memory; TMA's out-of-bounds fill writes the conv's zero padding and
+//     the zero channels past Cin, so no tap masks or per-copy addresses
+//     remain.  A second TMA load brings the chunk's 9 x 8 x BN weights;
+//   * the nine taps of the chunk then run from that one stage: 72 K values
+//     a stage, and each input byte leaves L2 about (TH+2)(TW+2)/(TH TW)
+//     times a chunk instead of nine;
+//   * a producer warp (one lane) keeps the loads in flight in a ring of
+//     three stages, full and empty mbarriers between it and the consumer
+//     warps, which wait for a stage, compute it and release it: the main
+//     loop has no block-wide barrier;
+//   * a consumer thread holds 8 pixels x 8 channels of float32 accumulators
+//     in registers: the 8 pixels of one tile column, RG rows apart (so tap
+//     (dy, dx) of its pixel r lies at a fixed offset from the thread's base,
+//     halo row (py + dy)(TW + 2) + (px + dx)), the channels tn*4 + {0..3}
+//     and (tn + BN/8)*4 + {0..3}.  Each 4 k of a tap load the thread's 8
+//     float4s of A and the 8 of B's four rows first, then run their 256
+//     FFMAs: the loop is FFMA but for about 6 % of reads, and a step's 16
+//     reads are in flight together;
+//   * the halo tile is stored as TMA writes it, a pixel's 8 channels in 32
+//     bytes; a warp's lanes run over BN first and over consecutive pixels of
+//     one row next (TW a multiple of the pixels a warp spans), so the float4
+//     reads of a quarter warp are one broadcast or distinct banks, and B's
+//     are consecutive float4s;
+//   * a block has 4 or 8 consumer warps, so the SM's four schedulers get
+//     equal shares of the FFMAs (a 6-warp block ran ~25 % slower), and 1 or
+//     3 blocks fill an SM's registers (128 a thread at 3);
 //   * tiles are numbered with the N tile fastest, so the blocks that share
-//     an A tile run together and read it from L2;
+//     an input tile run together and read it from L2;
 //   * epilogue: bias and the optional ReLU in registers, float4 stores
 //     where Cout is a multiple of 4.
 // The plans (with_plan below, the same table as ops/conv_cuda.py's PLANS)
-// answer to the shapes, chosen in Python from times on the H100: 128x128
-// where Cout is a multiple of 128; 96, 64, 48, 32 and 16 wide tiles for the
-// narrow widths (VIGOR's 5 * 2^k widths 40, 80 and 160 pad to 48, 96 and
-// 160, at most 20 % waste); and where the tiles give fewer blocks than the
-// card has SMs (the 16x16 and 32x32 stages), a split of K over gridDim.z
-// into a float32 workspace that conv3x3_splitk_reduce sums in a fixed
-// order, adding the bias and the ReLU.
+// differ in TH x TW, BN and the blocks resident on an SM; the wrapper picks
+// plan and split of K from a cost model fitted to their times on the H100
+// (launch_cost: tiles, resident blocks, the SMs' last round).  Where the
+// tiles leave resident slots empty (the 16x16 and 32x32 stages), K is
+// split in whole chunks over gridDim.z into a float32 workspace that
+// conv3x3_splitk_reduce sums in a fixed order, adding the bias and the ReLU.
+//
+// conv3x3_gemm_kernel, the gather: a shape whose Cin is not a multiple of 4,
+// which a tensor map cannot stride (of the decoders', only the dgrad of the
+// convs to Cout 1 and 2, whose input gradient has 1 or 2 channels).  A
+// 256 x 32 tile of flattened pixels; K in slabs of one tap's 8 channels; the
+// threads copy each slab's A themselves with 4-byte cp.async (zero-filled
+// outside the image from a per-row tap mask) and B in 16-byte granules,
+// through a ring of three stages and a block barrier per slab.
 //
 // conv3x3_direct_kernel: Cout 1 and 2 (the last conv of each branch at
 // 512x512).  Bound by bytes, so a thread per output pixel reads its 3x3
@@ -72,19 +93,20 @@
 //
 // The backward of a training step (ops/conv_cuda.py's autograd Function):
 //   * dgrad, dx = conv3x3(g, w') with w'[c][o][ky][kx] = w[o][c][2-ky][2-kx]
-//     (stride 1, padding 1), no bias, no ReLU: conv3x3_gemm_kernel itself,
-//     the wrapper packing w' as it packs w;
+//     (stride 1, padding 1), no bias, no ReLU: the forward's kernels
+//     themselves, the wrapper packing w' as it packs w;
 //   * wgrad, conv3x3_wgrad_kernel: a GEMM of M = 9*Cin + 1 rows (the nine
 //     taps' input channels and a row of ones, whose sums are the bias
-//     gradient), N = Cout, K = B*H*W pixels, on the forward's ring and
-//     k-major tiles (the same six tile shapes, chosen by Cout), A the
-//     forward's implicit gather of x's halo, B the rows of g.  K is split
-//     over pixel ranges (gridDim.z) into a float32 workspace until the
-//     tiles fill the card's resident slots (hundreds of splits at 512x512,
-//     where M x N is one tile), and conv3x3_wgrad_reduce sums the splits in
-//     a fixed order into the weight's channels_last layout [Cout][ky][kx][Cin]
-//     and the bias, so a step's gradients are the same bits run to run.
+//     gradient), N = Cout, K = B*H*W pixels, on the gather's ring and
+//     k-major tiles (six tile shapes, chosen by Cout), A the implicit
+//     gather of x's halo, B the rows of g.  K is split over pixel ranges
+//     (gridDim.z) into a float32 workspace until the tiles fill the card's
+//     resident slots (hundreds of splits at 512x512, where M x N is one
+//     tile), and conv3x3_wgrad_reduce sums the splits in a fixed order into
+//     the weight's channels_last layout [Cout][ky][kx][Cin] and the bias,
+//     so a step's gradients are the same bits run to run.
 
+#include <cuda.h>  // CUtensorMap and its enums; the driver's encoder is reached at run time
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -133,29 +155,26 @@ struct ConvArgs {
   int relu;
 };
 
-constexpr int kBK = 8;  // K values (channels of one tap) of a slab
+constexpr int kBK = 8;  // channels of a K chunk (and of the gather's slab of one tap)
 
-template <int BM_, int BN_, int TN_, int MIN_BLOCKS_, bool AM_>
+// The gather's and wgrad's tiles: A k-major ([BK][BM + 4]) from 4-byte
+// copies, B [BK][BN].
+template <int BM_, int BN_, int TN_, int MIN_BLOCKS_>
 struct Plan {
   static constexpr int BM = BM_, BN = BN_, BK = kBK, TM = 8, TN = TN_, STAGES = 3;
   static constexpr int MIN_BLOCKS = MIN_BLOCKS_;
-  // AM: A stored m-major ([BM][BK + 4]) from 16-byte copies of 4 channels;
-  // else k-major ([BK][BM + 4]) from 4-byte copies
-  static constexpr bool AM = AM_;
   static constexpr int MT = BM / TM, NT = BN / TN, THREADS = MT * NT;
   // a warp's thread columns and rows
   static constexpr int WN = NT % 8 == 0 ? 8 : NT % 4 == 0 ? 4 : NT, WM = 32 / WN;
-  static constexpr int SA = AM ? BK + 4 : BM + 4;             // A row stride (floats)
-  static constexpr int A_STAGE = AM ? BM * SA : BK * SA;
+  static constexpr int SA = BM + 4;                           // A row stride (floats)
+  static constexpr int A_STAGE = BK * SA;
   static constexpr int STAGE = A_STAGE + BK * BN;             // floats of one ring stage
   static constexpr int SMEM = STAGES * STAGE * 4;
-  static constexpr int A_VEC = AM ? 4 : 1;                    // channels of one A copy
-  static constexpr int A_COLS = BK / A_VEC;                   // A copies of a tile row a slab
-  static constexpr int A_ROW_STEP = THREADS / A_COLS;
+  static constexpr int A_ROW_STEP = THREADS / BK;
   static constexpr int A_COPIES = (BM + A_ROW_STEP - 1) / A_ROW_STEP;  // of a thread a slab
   static constexpr int B_GRANULES = BK * BN / 4;
   static_assert(THREADS % 32 == 0 && MT % WM == 0 && NT % WN == 0, "warp layout");
-  static_assert(THREADS % A_COLS == 0, "A copies");
+  static_assert(THREADS % BK == 0, "A copies");
   static_assert(TN == 4 || TN == 8, "thread tile");
 };
 
@@ -172,48 +191,25 @@ __device__ __forceinline__ int tap_mask(int y, int x, int h, int w) {
 }
 
 // One slab's FFMAs into a thread's TM x TN tile: columns (tn + h*NT)*4 + j;
-// rows tm + i*MT (AM) or (tm + h*MT)*4 + j.
+// rows (tm + h*MT)*4 + j.
 template <class P>
 __device__ __forceinline__ void fma_slab(const float* As, const float* Bs,
                                          float (&acc)[P::TM][P::TN], int tm, int tn) {
-  if constexpr (P::AM) {
 #pragma unroll
-    for (int kq = 0; kq < P::BK / 4; ++kq) {
-      alignas(16) float av[P::TM][4];
+  for (int q = 0; q < P::BK; ++q) {
+    alignas(16) float av[P::TM], bv[P::TN];
 #pragma unroll
-      for (int r = 0; r < P::TM; ++r)
-        *reinterpret_cast<float4*>(av[r]) =
-            *reinterpret_cast<const float4*>(As + (tm + r * P::MT) * P::SA + kq * 4);
+    for (int h = 0; h < P::TM / 4; ++h)
+      *reinterpret_cast<float4*>(av + 4 * h) =
+          *reinterpret_cast<const float4*>(As + q * P::SA + (tm + h * P::MT) * 4);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        alignas(16) float bv[P::TN];
+    for (int h = 0; h < P::TN / 4; ++h)
+      *reinterpret_cast<float4*>(bv + 4 * h) =
+          *reinterpret_cast<const float4*>(Bs + q * P::BN + (tn + h * P::NT) * 4);
 #pragma unroll
-        for (int h = 0; h < P::TN / 4; ++h)
-          *reinterpret_cast<float4*>(bv + 4 * h) = *reinterpret_cast<const float4*>(
-              Bs + (kq * 4 + q) * P::BN + (tn + h * P::NT) * 4);
+    for (int r = 0; r < P::TM; ++r)
 #pragma unroll
-        for (int r = 0; r < P::TM; ++r)
-#pragma unroll
-          for (int j = 0; j < P::TN; ++j) acc[r][j] = fmaf(av[r][q], bv[j], acc[r][j]);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int q = 0; q < P::BK; ++q) {
-      alignas(16) float av[P::TM], bv[P::TN];
-#pragma unroll
-      for (int h = 0; h < P::TM / 4; ++h)
-        *reinterpret_cast<float4*>(av + 4 * h) =
-            *reinterpret_cast<const float4*>(As + q * P::SA + (tm + h * P::MT) * 4);
-#pragma unroll
-      for (int h = 0; h < P::TN / 4; ++h)
-        *reinterpret_cast<float4*>(bv + 4 * h) =
-            *reinterpret_cast<const float4*>(Bs + q * P::BN + (tn + h * P::NT) * 4);
-#pragma unroll
-      for (int r = 0; r < P::TM; ++r)
-#pragma unroll
-        for (int j = 0; j < P::TN; ++j) acc[r][j] = fmaf(av[r], bv[j], acc[r][j]);
-    }
+      for (int j = 0; j < P::TN; ++j) acc[r][j] = fmaf(av[r], bv[j], acc[r][j]);
   }
 }
 
@@ -244,6 +240,46 @@ __device__ __forceinline__ void gemm_slabs(float* smem, int nslabs, Copy&& copy_
   cp_async_wait<0>();
 }
 
+// The epilogue of a thread's 8 x 8 or 8 x 4 tile: out[m][n] = act(acc +
+// bias) for its rows' pixels m (-1: none) and columns n0 + (tn + h*NT)*4 +
+// {0..3}; with a split of K (gridDim.z > 1) the raw sums go to the split's
+// slice of the workspace.
+template <int TM, int TN, int NT>
+__device__ __forceinline__ void store_tile(const float (&acc)[TM][TN], const int (&m)[TM],
+                                           int n0, int tn, const float* bias, float* out,
+                                           int mtotal, int cout, int relu) {
+  const bool split = gridDim.z > 1;
+  out += static_cast<size_t>(blockIdx.z) * mtotal * cout;
+  const bool vec = cout % 4 == 0;
+#pragma unroll
+  for (int h2 = 0; h2 < TN / 4; ++h2) {
+    const int n = n0 + (tn + h2 * NT) * 4;
+    if (n >= cout) continue;
+    float b[4] = {0.f, 0.f, 0.f, 0.f};
+    if (!split && bias != nullptr)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = n + j < cout ? bias[n + j] : 0.f;
+#pragma unroll
+    for (int r = 0; r < TM; ++r) {
+      if (m[r] < 0) continue;
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v[j] = acc[r][h2 * 4 + j] + b[j];
+        if (!split && relu) v[j] = fmaxf(v[j], 0.f);
+      }
+      float* dst = out + static_cast<size_t>(m[r]) * cout + n;
+      if (vec) {
+        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (n + j < cout) dst[j] = v[j];
+      }
+    }
+  }
+}
+
 template <class P>
 __global__ void __launch_bounds__(P::THREADS, P::MIN_BLOCKS) conv3x3_gemm_kernel(ConvArgs a) {
   float* smem = dynamic_smem<float>();
@@ -254,9 +290,8 @@ __global__ void __launch_bounds__(P::THREADS, P::MIN_BLOCKS) conv3x3_gemm_kernel
   const int chunks = (a.cin + P::BK - 1) / P::BK;
   const int nslabs = min(a.slabs, 9 * chunks - slab0);
 
-  // A copies: this thread's column col (channel col * A_VEC of the slab)
-  // and tile rows r0 + s * A_ROW_STEP
-  const int col = t % P::A_COLS, r0 = t / P::A_COLS;
+  // A copies: this thread's channel col of the slab and tile rows r0 + s * A_ROW_STEP
+  const int col = t % P::BK, r0 = t / P::BK;
   int base[P::A_COPIES], mask[P::A_COPIES];
 #pragma unroll
   for (int s = 0; s < P::A_COPIES; ++s) {
@@ -275,18 +310,14 @@ __global__ void __launch_bounds__(P::THREADS, P::MIN_BLOCKS) conv3x3_gemm_kernel
   auto copy_slab = [&](int slab, int stage) {
     float* As = smem + stage * P::STAGE;
     float* Bs = As + P::A_STAGE;
-    const int q = slab0 + slab, tap = q % 9, c = (q / 9) * P::BK + col * P::A_VEC;
+    const int q = slab0 + slab, tap = q % 9, c = (q / 9) * P::BK + col;
     const int off = ((tap / 3 - 1) * a.w + tap % 3 - 1) * a.cin + c;
 #pragma unroll
     for (int s = 0; s < P::A_COPIES; ++s) {
       const int r = r0 + s * P::A_ROW_STEP;
       if (P::BM % P::A_ROW_STEP && r >= P::BM) break;
       const bool ok = ((mask[s] >> tap) & 1) && c < a.cin;
-      const float* src = a.x + (ok ? base[s] + off : 0);
-      if constexpr (P::AM)
-        cp_async16z(As + r * P::SA + col * 4, src, ok);
-      else
-        cp_async4(As + col * P::SA + r, src, ok);
+      cp_async4(As + col * P::SA + r, a.x + (ok ? base[s] + off : 0), ok);
     }
     const float* src = a.wt + static_cast<size_t>(q) * P::BK * a.npad + n0;
     for (int g = t; g < P::B_GRANULES; g += P::THREADS) {
@@ -295,8 +326,7 @@ __global__ void __launch_bounds__(P::THREADS, P::MIN_BLOCKS) conv3x3_gemm_kernel
     }
   };
 
-  // thread tile: columns (tn + h*NT)*4 + j; rows tm + i*MT (AM) or
-  // (tm + h*MT)*4 + j
+  // thread tile: columns (tn + h*NT)*4 + j; rows (tm + h*MT)*4 + j
   const int warp = t / 32, lane = t % 32;
   const int tn = (warp % (P::NT / P::WN)) * P::WN + lane % P::WN;
   const int tm = (warp / (P::NT / P::WN)) * P::WM + lane / P::WN;
@@ -304,38 +334,214 @@ __global__ void __launch_bounds__(P::THREADS, P::MIN_BLOCKS) conv3x3_gemm_kernel
   float acc[P::TM][P::TN];
   gemm_slabs<P>(smem, nslabs, copy_slab, acc, tm, tn);
 
-  // epilogue: a split of K leaves raw sums in its slice of the workspace
-  const bool split = gridDim.z > 1;
-  float* out = a.out + static_cast<size_t>(blockIdx.z) * a.m * a.cout;
-  const bool vec = a.cout % 4 == 0;
+  int m[P::TM];
 #pragma unroll
-  for (int h2 = 0; h2 < P::TN / 4; ++h2) {
-    const int n = n0 + (tn + h2 * P::NT) * 4;
-    if (n >= a.cout) continue;
-    float bias[4] = {0.f, 0.f, 0.f, 0.f};
-    if (!split && a.bias != nullptr)
+  for (int r = 0; r < P::TM; ++r) {
+    m[r] = m0 + (tm + (r / 4) * P::MT) * 4 + r % 4;
+    if (m[r] >= a.m) m[r] = -1;
+  }
+  store_tile<P::TM, P::TN, P::NT>(acc, m, n0, tn, a.bias, a.out, a.m, a.cout, a.relu);
+}
+
+// ---- the halo kernel: TMA loads into an mbarrier ring ----
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// one arrival that also expects `bytes` of TMA writes before the phase ends
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned a = smem_u32(bar);
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+struct HaloArgs {
+  const float* bias;  // [cout] or null
+  float* out;         // [m][cout]; with a split of K, the workspace [splits][m][cout]
+  int h, w, cout;
+  int m;              // batch*h*w
+  int chunks;         // K chunks of kBK channels
+  int steps;          // chunks of each split
+  int tiles_x, tiles_y, ntn;
+  int relu;
+};
+
+// A halo plan: TH x TW output pixels of one image and BN output channels a
+// block, BLOCKS blocks resident on an SM.
+template <int TH_, int TW_, int BN_, int BLOCKS_>
+struct Halo {
+  static constexpr int TH = TH_, TW = TW_, BN = BN_, BLOCKS = BLOCKS_;
+  static constexpr int CK = kBK, TM = 8, TN = 8, STAGES = 3;
+  static constexpr int HH = TH + 2, HW = TW + 2;              // the halo tile
+  static constexpr int MT = TH * TW / TM, NT = BN / TN;       // thread rows and columns
+  static constexpr int RG = MT / TW;                          // rows between a thread's pixels
+  static constexpr int CONSUMERS = MT * NT, WARPS = CONSUMERS / 32;
+  static constexpr int THREADS = CONSUMERS + 32;              // and the producer warp
+  static constexpr int WN = NT % 8 == 0 ? 8 : NT % 4 == 0 ? 4 : 2, WM = 32 / WN;
+  static constexpr int A_BYTES = HH * HW * CK * 4, B_BYTES = 9 * CK * BN * 4;
+  static constexpr int A_STAGE = (A_BYTES + 127) / 128 * 32;  // floats, 128-byte aligned
+  static constexpr int STAGE = A_STAGE + B_BYTES / 4;
+  static constexpr int SMEM = STAGES * STAGE * 4 + 2 * STAGES * 8;  // and the barriers
+  static_assert(CONSUMERS % 32 == 0 && NT % WN == 0 && MT % WM == 0 && TW % WM == 0,
+                "a warp spans one row of pixels");
+  static_assert(MT % TW == 0 && TH == TM * RG, "a thread's pixels: one column, RG rows apart");
+  static_assert(BN % 16 == 0 && BN <= 256 && HW <= 256 && HH <= 256 && 9 * CK <= 256,
+                "TMA boxes");
+  static_assert(STAGE % 32 == 0, "128-byte aligned stages");
+};
+
+// One stage's FFMAs: the nine taps of a chunk, its channels in order within
+// a tap.  a: the halo at the thread's first pixel; b: B at its first column.
+// Each 4 k of a tap load the thread's 8 A float4s and the 4 B rows' 8
+// float4s first, then run their 256 FFMAs.
+template <class P>
+__device__ __forceinline__ void halo_fma(const float* a, const float* b,
+                                         float (&acc)[P::TM][P::TN]) {
+#pragma unroll 1
+  for (int tap = 0; tap < 9; ++tap) {
+    const float* at = a + ((tap / 3) * P::HW + tap % 3) * P::CK;
+    const float* bt = b + tap * P::CK * P::BN;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) bias[j] = n + j < a.cout ? a.bias[n + j] : 0.f;
+    for (int kq = 0; kq < P::CK / 4; ++kq) {
+      alignas(16) float av[P::TM][4], bv[4][P::TN];
 #pragma unroll
-    for (int r = 0; r < P::TM; ++r) {
-      const int m = m0 + (P::AM ? tm + r * P::MT : (tm + (r / 4) * P::MT) * 4 + r % 4);
-      if (m >= a.m) continue;
-      float v[4];
+      for (int r = 0; r < P::TM; ++r)
+        *reinterpret_cast<float4*>(av[r]) =
+            *reinterpret_cast<const float4*>(at + r * P::RG * P::HW * P::CK + kq * 4);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        v[j] = acc[r][h2 * 4 + j] + bias[j];
-        if (!split && a.relu) v[j] = fmaxf(v[j], 0.f);
+      for (int q = 0; q < 4; ++q) {
+        const float* bq = bt + (kq * 4 + q) * P::BN;
+        *reinterpret_cast<float4*>(bv[q]) = *reinterpret_cast<const float4*>(bq);
+        *reinterpret_cast<float4*>(bv[q] + 4) = *reinterpret_cast<const float4*>(bq + P::NT * 4);
       }
-      float* dst = out + static_cast<size_t>(m) * a.cout + n;
-      if (vec) {
-        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-      } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (n + j < a.cout) dst[j] = v[j];
-      }
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int r = 0; r < P::TM; ++r)
+#pragma unroll
+          for (int j = 0; j < P::TN; ++j) acc[r][j] = fmaf(av[r][q], bv[q][j], acc[r][j]);
     }
   }
+}
+
+template <class P>
+__global__ void __launch_bounds__(P::THREADS, P::BLOCKS)
+    conv3x3_halo_kernel(const __grid_constant__ CUtensorMap xmap,
+                        const __grid_constant__ CUtensorMap wmap, HaloArgs a) {
+  // (no static shared memory: the dynamic block starts 128-byte aligned, as
+  // TMA wants; the pointer stays visibly shared, so its reads are LDS)
+  extern __shared__ __align__(128) unsigned char halo_smem[];
+  float* smem = reinterpret_cast<float*>(halo_smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::STAGES * P::STAGE);
+  uint64_t* empty = full + P::STAGES;
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+
+  // the block's tile (N tile fastest): image b, rows y0.., columns x0..,
+  // channels n0..; chunks c0 .. c0 + n - 1 of its split
+  int idx = blockIdx.x;
+  const int n0 = idx % a.ntn * P::BN;
+  idx /= a.ntn;
+  const int x0 = idx % a.tiles_x * P::TW;
+  idx /= a.tiles_x;
+  const int y0 = idx % a.tiles_y * P::TH, b = idx / a.tiles_y;
+  const int c0 = blockIdx.z * a.steps;
+  const int n = min(a.steps, a.chunks - c0);
+
+  if (t == 0) {
+    for (int s = 0; s < P::STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, P::WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == P::WARPS) {  // the producer: one lane issues the loads
+    if (lane == 0) {
+      for (int i = 0; i < n; ++i) {
+        const int s = i % P::STAGES;
+        if (i >= P::STAGES) mbar_wait(empty + s, (i / P::STAGES - 1) & 1);
+        float* As = smem + s * P::STAGE;
+        mbar_expect_tx(full + s, P::A_BYTES + P::B_BYTES);
+        tma_load_4d(As, &xmap, full + s, (c0 + i) * P::CK, x0 - 1, y0 - 1, b);
+        tma_load_2d(As + P::A_STAGE, &wmap, full + s, n0, (c0 + i) * 9 * P::CK);
+      }
+    }
+    return;
+  }
+
+  // thread tile: pixels (g + r*RG, px) of the tile, columns (tn + h*NT)*4 + j
+  const int tn = (warp % (P::NT / P::WN)) * P::WN + lane % P::WN;
+  const int tm = (warp / (P::NT / P::WN)) * P::WM + lane / P::WN;
+  const int g = tm / P::TW, px = tm % P::TW;
+  float acc[P::TM][P::TN];
+#pragma unroll
+  for (int i = 0; i < P::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < P::TN; ++j) acc[i][j] = 0.f;
+  for (int i = 0; i < n; ++i) {
+    const int s = i % P::STAGES;
+    mbar_wait(full + s, (i / P::STAGES) & 1);
+    const float* As = smem + s * P::STAGE;
+    halo_fma<P>(As + (g * P::HW + px) * P::CK, As + P::A_STAGE + tn * 4, acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + s);
+  }
+
+  int m[P::TM];
+  const int x = x0 + px;
+#pragma unroll
+  for (int r = 0; r < P::TM; ++r) {
+    const int y = y0 + g + r * P::RG;
+    m[r] = y < a.h && x < a.w ? (b * a.h + y) * a.w + x : -1;
+  }
+  store_tile<P::TM, P::TN, P::NT>(acc, m, n0, tn, a.bias, a.out, a.m, a.cout, a.relu);
 }
 
 // out[i] = act(sum over the splits of ws[z][i] + bias[i % cout]), the
@@ -413,7 +619,7 @@ struct WgradArgs {
 // ([cout][ky][kx][cin]) with the bias row after the taps.
 template <class P>
 __global__ void __launch_bounds__(P::THREADS, P::MIN_BLOCKS) conv3x3_wgrad_kernel(WgradArgs a) {
-  static_assert(!P::AM && P::THREADS % P::BK == 0, "wgrad tiles are k-major");
+  static_assert(P::THREADS % P::BK == 0, "wgrad tiles are k-major");
   constexpr int GROUPS = P::THREADS / P::BK;                     // A granule columns of a pass
   constexpr int A_G = (P::BM / 4 + GROUPS - 1) / GROUPS;         // A granules of a thread a slab
   constexpr int B_COLS = P::BN / 4, B_G = P::BK * B_COLS;       // B granules of a slab
@@ -552,32 +758,33 @@ __global__ void conv3x3_wgrad_reduce(const float* ws, float* dw, float* db, int 
     db[n] = s;
 }
 
-// The GEMM plans by code, in the order of ops/conv_cuda.py's PLANS:
-// (BM, BN, TN, MIN_BLOCKS, AM).
-template <class F>
-int with_plan(int code, F&& f) {
+// The forward's (and dgrad's) plans by code, in the order of
+// ops/conv_cuda.py's PLANS: the halo plans (TH, TW, BN, BLOCKS), then the
+// gather (BM, BN, TN, MIN_BLOCKS).
+template <class H, class G>
+int with_plan(int code, H&& halo, G&& gather) {
   switch (code) {
-    case 0: return f(Plan<128, 128, 8, 2, false>{});  // wide
-    case 1: return f(Plan<128, 96, 8, 2, true>{});    // n96
-    case 2: return f(Plan<128, 64, 8, 3, false>{});   // n64
-    case 3: return f(Plan<128, 48, 4, 2, true>{});    // n48
-    case 4: return f(Plan<256, 32, 8, 3, false>{});   // n32
-    case 5: return f(Plan<256, 16, 4, 4, true>{});    // n16
+    case 0: return halo(Halo<8, 16, 128, 1>{});    // h128
+    case 1: return halo(Halo<8, 16, 64, 3>{});     // h64
+    case 2: return halo(Halo<16, 16, 32, 3>{});    // h32
+    case 3: return halo(Halo<16, 32, 16, 3>{});    // h16
+    case 4: return gather(Plan<256, 32, 8, 3>{});  // gather
     default: return -1;
   }
 }
 
-// The weight gradient's plans by code, in the same order: the same tiles
-// with A k-major (a slab is BK pixels, whose A rows are channels).
+// The weight gradient's plans by code, in the order of ops/conv_cuda.py's
+// WGRAD_PLANS: (BM, BN, TN, MIN_BLOCKS), A k-major (a slab is BK pixels,
+// whose A rows are channels).
 template <class F>
 int with_wgrad_plan(int code, F&& f) {
   switch (code) {
-    case 0: return f(Plan<128, 128, 8, 2, false>{});  // wide
-    case 1: return f(Plan<128, 96, 8, 2, false>{});   // n96
-    case 2: return f(Plan<128, 64, 8, 3, false>{});   // n64
-    case 3: return f(Plan<128, 48, 4, 2, false>{});   // n48
-    case 4: return f(Plan<256, 32, 8, 3, false>{});   // n32
-    case 5: return f(Plan<256, 16, 4, 4, false>{});   // n16
+    case 0: return f(Plan<128, 128, 8, 2>{});  // wide
+    case 1: return f(Plan<128, 96, 8, 2>{});  // n96
+    case 2: return f(Plan<128, 64, 8, 3>{});  // n64
+    case 3: return f(Plan<128, 48, 4, 2>{});  // n48
+    case 4: return f(Plan<256, 32, 8, 3>{});  // n32
+    case 5: return f(Plan<256, 16, 4, 4>{});  // n16
     default: return -1;
   }
 }
@@ -588,38 +795,113 @@ void opt_in_smem(int bytes) {
     cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no -lcuda; null where the driver does not offer it.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                            cudaEnableDefault, &found);
+#else
+    const cudaError_t rc =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return rc == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A float32 tensor map of `rank` dimensions (innermost first), zero-filled
+// out of bounds, no swizzle.
+bool tensor_map(CUtensorMap* map, const float* base, int rank, const cuuint64_t* dims,
+                const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiled encode = encode_tiled();
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  return encode != nullptr &&
+         encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank, const_cast<float*>(base), dims,
+                strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 }  // namespace
+
+// Resolves the tensor-map encoder once, before any launch (and so before
+// any CUDA graph capture).  Returns 0, or cudaErrorNotSupported where the
+// driver lacks it.
+extern "C" int ccvpe_conv3x3_init() {
+  return encode_tiled() != nullptr ? 0 : static_cast<int>(cudaErrorNotSupported);
+}
 
 // x [batch][h][w][cin]; w [9 * cp][npad] with cp = cin rounded up to kBK,
 // row ((j * 9 + ky * 3 + kx) * kBK + c) the weights of channel j * kBK + c
 // at tap (ky, kx), npad a multiple of the plan's BN, at least cout; bias
 // [cout] or null; out [batch*h*w][cout]; with splits > 1, ws
-// [splits][batch*h*w][cout], each split taking `slabs` slabs.  Every
-// pointer 16-byte aligned.  Returns cudaErrorInvalidValue for arguments it does not take,
-// else cudaGetLastError().
+// [splits][batch*h*w][cout], each split taking `steps` K steps: chunks of
+// kBK channels (a halo plan, cin a multiple of 4) or slabs (the gather).
+// Every pointer 16-byte aligned.  Returns cudaErrorInvalidValue for
+// arguments it does not take, else cudaGetLastError().
 extern "C" int ccvpe_conv3x3(const float* x, const float* w, const float* bias, float* out,
                              float* ws, int batch, int h, int wd, int cin, int cout, int npad,
-                             int relu, int plan, int splits, int slabs, void* stream) {
+                             int relu, int plan, int splits, int steps, void* stream) {
   const long long m = static_cast<long long>(batch) * h * wd;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (m <= 0 || cin <= 0 || cout <= 0 || splits < 1 || splits > 65535 || slabs < 1 ||
+  if (m <= 0 || cin <= 0 || cout <= 0 || splits < 1 || splits > 65535 || steps < 1 ||
       m * cin > INT_MAX || m * cout * splits > INT_MAX || (splits > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int rc = with_plan(plan, [&](auto p) {
+  float* dst = splits > 1 ? ws : out;
+  const int chunks = (cin + kBK - 1) / kBK;
+  const auto halo = [&](auto p) {
+    using P = decltype(p);
+    const long long tx = (wd + P::TW - 1) / P::TW, ty = (h + P::TH - 1) / P::TH;
+    const long long tiles = batch * ty * tx * (npad / P::BN);
+    if (cin % 4 || npad % P::BN || npad < cout || tiles > INT_MAX ||
+        (splits - 1) * steps >= chunks || splits * steps < chunks)
+      return static_cast<int>(cudaErrorInvalidValue);
+    // x as [batch][h][w][cin], a box of the halo tile's rows, columns and a
+    // chunk; w as [9 * cp][npad], a box of a chunk's 9 * kBK rows and BN columns
+    const cuuint64_t xdims[4] = {static_cast<cuuint64_t>(cin), static_cast<cuuint64_t>(wd),
+                                 static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(batch)};
+    const cuuint64_t xstrides[3] = {4ull * cin, 4ull * cin * wd, 4ull * cin * wd * h};
+    const cuuint32_t xbox[4] = {P::CK, P::HW, P::HH, 1};
+    const cuuint64_t wdims[2] = {static_cast<cuuint64_t>(npad), 9ull * kBK * chunks};
+    const cuuint64_t wstrides[1] = {4ull * npad};
+    const cuuint32_t wbox[2] = {P::BN, 9 * P::CK};
+    CUtensorMap xmap, wmap;
+    if (!tensor_map(&xmap, x, 4, xdims, xstrides, xbox) ||
+        !tensor_map(&wmap, w, 2, wdims, wstrides, wbox))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const HaloArgs a{bias, dst, h, wd, cout, static_cast<int>(m), chunks, steps,
+                     static_cast<int>(tx), static_cast<int>(ty), npad / P::BN, relu};
+    constexpr auto kernel = &conv3x3_halo_kernel<P>;
+    opt_in_smem<kernel>(P::SMEM);
+    kernel<<<dim3(static_cast<unsigned>(tiles), 1, splits), P::THREADS, P::SMEM, st>>>(xmap,
+                                                                                     wmap, a);
+    return 0;
+  };
+  const auto gather = [&](auto p) {
     using P = decltype(p);
     const long long tiles = (m + P::BM - 1) / P::BM * (npad / P::BN);
-    const int total = 9 * ((cin + P::BK - 1) / P::BK);
-    if (npad % P::BN || npad < cout || tiles > INT_MAX || (P::AM && cin % 4) ||
-        (splits - 1) * slabs >= total ||
-        splits * slabs < total)
+    const int total = 9 * chunks;
+    if (npad % P::BN || npad < cout || tiles > INT_MAX || (splits - 1) * steps >= total ||
+        splits * steps < total)
       return static_cast<int>(cudaErrorInvalidValue);
-    ConvArgs a{x, w, bias, splits > 1 ? ws : out, h, wd, cin, cout, npad, static_cast<int>(m),
-               slabs, relu};
+    ConvArgs a{x, w, bias, dst, h, wd, cin, cout, npad, static_cast<int>(m), steps, relu};
     constexpr auto kernel = &conv3x3_gemm_kernel<P>;
     opt_in_smem<kernel>(P::SMEM);
     kernel<<<dim3(static_cast<unsigned>(tiles), 1, splits), P::THREADS, P::SMEM, st>>>(a);
     return 0;
-  });
+  };
+  const int rc = with_plan(plan, halo, gather);
   if (rc < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (rc > 0) return rc;
   if (splits > 1) {

@@ -6,16 +6,21 @@ padding=1))`` in float32 with FFMA (no TF32), act a ReLU or the identity,
 for a ``channels_last`` float32 ``x`` [B, Cin, H, W] and a [Cout, Cin, 3, 3]
 weight, and returns a ``channels_last`` tensor.  It replaces no TPU kernel
 (the JAX package leaves these convolutions to XLA); the design is in the
-source note of ``conv3x3.cu``: an implicit GEMM (M = B*H*W pixels, N = Cout,
-K = 9*Cin) with six tile plans, a split of K over blocks where the tiles
-are too few for the card (the 16x16 and 32x32 stages), and a direct kernel
-for Cout 1 and 2.
+source note of ``conv3x3.cu``: implicit GEMMs (M = B*H*W pixels, N = Cout,
+K = 9*Cin).  Where Cin is a multiple of 4 (every decoder conv to Cout > 2,
+forward and dgrad) the halo kernel: a block's tile of TH x TW pixels and BN
+channels, each chunk of 8 input channels staged once by TMA as a
+zero-filled halo tile and its nine taps run from shared memory, four plans
+(``PLANS``: h128, h64, h32, h16).  Where it is not (dgrad of the convs to
+Cout 1 and 2), the gather, which copies each tap's A itself.  K is split
+over blocks where the tiles leave the card's resident slots empty (the
+16x16 and 32x32 stages); Cout 1 and 2 take a direct kernel.
 
 With autograd on, ``conv3x3`` is ``Conv3x3Function``, whose backward is
-hand-written kernels too: dgrad on the same implicit GEMM with the weight
+hand-written kernels too: dgrad on the same kernels with the weight
 transposed and flipped in its taps (``packed_weight(..., transposed=True)``,
 the plan ``choose_plan(B, H, W, Cout, Cin)``), wgrad on
-``conv3x3_wgrad_kernel`` (``choose_wgrad_plan``: the same tile shapes,
+``conv3x3_wgrad_kernel`` (``choose_wgrad_plan`` over ``WGRAD_PLANS``:
 rows 9*Cin + 1, columns Cout, K = pixels split over blocks, the bias
 gradient from a row of ones), written into the weight's ``channels_last``
 layout.  The first conv of a ``DoubleConv`` saves its ReLU's output and
@@ -34,14 +39,16 @@ the shape alone, as pure functions that load no library, so the CPU tests
 reach them.  For a CUDA tensor ``conv3x3`` checks device, dtype, shape and
 layout and raises on anything else; it never falls back to the library.  A
 CPU tensor takes ``conv3x3_plain``.  Every call repacks the weight to the
-kernel's [K][N] layout (one copy: no cache can miss a write through
-``.data`` or into an FSDP buffer).  Each launch runs inside an operator
+kernels' [K][N] layout (one copy: no cache can miss a write through
+``.data`` or into an FSDP buffer) and, for the halo kernel, encodes the two
+tensor maps on the host (a CUDA graph keeps those of its capture, which
+hold the graph pool's addresses).  Each launch runs inside an operator
 (``ccvpe::conv3x3``, ``ccvpe::conv3x3_dgrad``, ``ccvpe::conv3x3_wgrad``),
 so a profiler attaches the kernels to it and to the spans around it.
-``LAUNCH_COUNTS`` counts the implicit GEMM's and the direct kernel's
-launches (forward and dgrad) by plan, ``PASS_COUNTS`` the convolutions'
-launches by pass (forward, dgrad, wgrad), a CUDA graph's at each replay
-(``ops.graphs.count``).
+``LAUNCH_COUNTS`` counts the forward and dgrad launches by plan (the halo
+plans, the gather, the direct kernel; ``halo_launches`` sums the first),
+``PASS_COUNTS`` the convolutions' launches by pass (forward, dgrad, wgrad),
+a CUDA graph's at each replay (``ops.graphs.count``).
 """
 
 from __future__ import annotations
@@ -60,40 +67,70 @@ from .matching_cuda import H100, DeviceLimits, device_limits
 
 
 class ConvPlan(NamedTuple):
-    """A GEMM tile plan, as ``conv3x3.cu``'s ``with_plan`` has it under the
-    same index (the kernel refuses an N or a Cin its tile does not take)."""
+    """A forward (and dgrad) plan, as ``conv3x3.cu``'s ``with_plan`` has it
+    under the same index (the kernel refuses an N or a Cin its tile does not
+    take)."""
     name: str
-    bm: int          # output pixels of a block's tile
+    th: int          # output rows of a block's tile (the gather: 1)
+    tw: int          # output columns of a block's tile (the gather: a run of flattened pixels)
     bn: int          # output channels of a block's tile
-    am: bool         # A m-major from 16-byte copies (Cin a multiple of 4), else k-major
     blocks: int      # blocks resident on an SM (registers and shared memory)
     tflops: float    # the plan's rate on its padded tile at large M, H100 (the choice's weight)
+    halo: bool       # the halo kernel (Cin a multiple of 4), else the gather
 
 
-# From times on an H100 at the decoders' shapes (PERF.md): the 128x128 tile
-# is fastest per padded FLOP, the narrower ones lose rate with the A tile's
-# reuse across N but waste less of it on Cout 40, 80 and 160.
+# The halo plans, then the gather, which takes the shapes a tensor map
+# cannot stride (Cin not a multiple of 4).  Each halo plan keeps 4 or 8
+# consumer warps a block, so an SM's four schedulers get equal shares; the
+# rates are launch_cost's, fitted to times of every plan and split at the
+# decoders' shapes on an H100 (PERF.md), the gather's from PR 17's n32.
 PLANS = (
-    ConvPlan("wide", 128, 128, False, 2, 39.0),
-    ConvPlan("n96", 128, 96, True, 2, 36.3),
-    ConvPlan("n64", 128, 64, False, 3, 35.5),
-    ConvPlan("n48", 128, 48, True, 2, 29.0),
-    ConvPlan("n32", 256, 32, False, 3, 30.5),
-    ConvPlan("n16", 256, 16, True, 4, 26.7),
+    ConvPlan("h128", 8, 16, 128, 1, 42.0, True),
+    ConvPlan("h64", 8, 16, 64, 3, 45.0, True),
+    ConvPlan("h32", 16, 16, 32, 3, 43.0, True),
+    ConvPlan("h16", 16, 32, 16, 3, 44.0, True),
+    ConvPlan("gather", 1, 256, 32, 3, 30.5, False),
 )
 PLAN_BY_NAME = {p.name: p for p in PLANS}
-BK = 8                     # channels of one tap in a K slab (the kernel's kBK)
-STAGES = 3                 # slabs in the shared-memory ring
+HALO_PLANS = tuple(p for p in PLANS if p.halo)
+GATHER = "gather"
+BK = 8                     # channels of a K chunk (the kernel's kBK)
+CHUNK_K = 9 * BK           # K values of a chunk: its nine taps
 DIRECT = "direct"          # Cout 1 or 2: conv3x3_direct_kernel
 DIRECT_MAX_SMEM = 48 * 1024
 MAX_SPLITS = 8
-MIN_SLABS_PER_SPLIT = 16
-LONG_K = 256               # slabs from which a plan short of a full wave splits K in two
+SPLITS = (1, 2, 3, 4, 6, 8)  # the splits of K the chooser weighs
+MIN_K_PER_SPLIT = 128      # K values of each split, at least
+# launch_cost's model, fitted to times of every plan and split at the decoder
+# shapes on an H100 (PERF.md): an SM's rate with 1 or 2 blocks of a plan
+# that keeps 3 resident, relative to 3; the extra time of a split of K
+OCCUPANCY = (0.5, 0.9)
+SPLIT_COST = 0.1
 
+
+class WgradPlan(NamedTuple):
+    """A weight-gradient tile, as ``conv3x3.cu``'s ``with_wgrad_plan`` has it
+    under the same index: 9*Cin + 1 rows by Cout columns, A k-major."""
+    name: str
+    bm: int          # rows (taps' input channels) of a block's tile
+    bn: int          # output channels of a block's tile
+    blocks: int      # blocks resident on an SM
+    tflops: float    # the choice's weight: the forward gather's rate on this tile, H100 (PR 17)
+
+
+WGRAD_PLANS = (
+    WgradPlan("wide", 128, 128, 2, 39.0),
+    WgradPlan("n96", 128, 96, 2, 36.3),
+    WgradPlan("n64", 128, 64, 3, 35.5),
+    WgradPlan("n48", 128, 48, 2, 29.0),
+    WgradPlan("n32", 256, 32, 3, 30.5),
+    WgradPlan("n16", 256, 16, 4, 26.7),
+)
+WGRAD_PLAN_BY_NAME = {p.name: p for p in WGRAD_PLANS}
 WGRAD_MIN_SLABS = 32       # K slabs (of BK pixels) of a wgrad split, at least
 
-# launches of the implicit GEMM and the direct kernel (forward and dgrad), by
-# plan; launches by pass
+# launches of the halo kernel, the gather and the direct kernel (forward and
+# dgrad), by plan; launches by pass
 LAUNCH_COUNTS = {name: 0 for name in (*PLAN_BY_NAME, DIRECT)}
 PASSES = ("forward", "dgrad", "wgrad")
 PASS_COUNTS = {name: 0 for name in PASSES}
@@ -103,12 +140,12 @@ _COUNT_LOCK = threading.Lock()
 class Launch(NamedTuple):
     plan: str        # a PLANS name or DIRECT
     splits: int      # blocks along K (1: no split)
-    slabs: int       # K slabs of each split
+    steps: int       # K steps of each split: chunks (a halo plan) or slabs of one tap (the gather)
     npad: int        # the packed weight's N: Cout rounded up to the plan's BN
 
 
 class WgradLaunch(NamedTuple):
-    plan: str        # a PLANS name: its tile shape, A k-major
+    plan: str        # a WGRAD_PLANS name: its tile shape, A k-major
     splits: int      # blocks along K (pixels)
     slabs: int       # K slabs (BK pixels) of each split
     ldw: int         # the workspace's row: 9 * Cin + 1 rounded up to 4
@@ -117,6 +154,11 @@ class WgradLaunch(NamedTuple):
 def launch_counts() -> dict[str, int]:
     with _COUNT_LOCK:
         return dict(LAUNCH_COUNTS)
+
+
+def halo_launches(counts: dict[str, int]) -> int:
+    """The halo kernel's launches in ``launch_counts()``-like counts."""
+    return sum(counts[p.name] for p in HALO_PLANS)
 
 
 def pass_counts() -> dict[str, int]:
@@ -139,28 +181,36 @@ def direct_fits(cin: int, cout: int) -> bool:
     return cout in (1, 2) and cin % 4 == 0 and 9 * cin * cout * 4 <= DIRECT_MAX_SMEM
 
 
-def _fastest_plan(cin: int, cout: int, k_major: bool = False) -> ConvPlan:
-    """The plan with the least padded Cout over its rate (m-major plans
-    only where Cin is a multiple of 4; every plan where the tiles are all
-    k-major, as wgrad's)."""
-    fits = [p for p in PLANS if k_major or not (p.am and cin % 4)]
-    return min(fits, key=lambda p: -(-cout // p.bn) * p.bn / p.tflops)
+def padded_work(p: ConvPlan, batch: int, h: int, w: int, cout: int) -> int:
+    """Output pixels times channels that plan ``p``'s tiles cover (the
+    shape's own, and what the tiles round it up to)."""
+    n = -(-cout // p.bn) * p.bn
+    if p.halo:
+        return batch * -(-h // p.th) * p.th * -(-w // p.tw) * p.tw * n
+    return -(-(batch * h * w) // p.tw) * p.tw * n
 
 
-def _splits(tiles: int, total: int, p: ConvPlan, limits: DeviceLimits) -> int:
-    """Blocks along K, from times on an H100.  Where the tiles do not give
-    every SM a block (the 16x16 and 32x32 stages at 128x128), the split
-    whose blocks fill the last of their waves of resident slots the most
-    (the fewest on a tie); where they fill fewer than the resident slots and
-    K is long, two; else one.  Each split keeps MIN_SLABS_PER_SPLIT slabs."""
-    most = max(1, min(MAX_SPLITS, total // MIN_SLABS_PER_SPLIT))
-    slots = limits.sms * p.blocks
-    if tiles < limits.sms:
-        return max(range(1, most + 1),
-                   key=lambda s: (tiles * s / (-(-tiles * s // slots) * slots), -s))
-    if tiles < slots and total >= LONG_K:
-        return min(2, most)
-    return 1
+def tiles(p: ConvPlan, batch: int, h: int, w: int, cout: int) -> int:
+    return padded_work(p, batch, h, w, cout) // (p.th * p.tw * p.bn)
+
+
+def launch_cost(p: ConvPlan, batch: int, h: int, w: int, cout: int, splits: int,
+                limits: DeviceLimits = H100) -> float:
+    """The time of plan ``p`` with K in ``splits`` splits, relative, from a
+    model fitted to times on an H100: the busiest SM runs its share of the
+    blocks (tiles times splits over the SMs, rounded up) in rounds of the
+    plan's resident blocks, a round of fewer at the rate OCCUPANCY gives it;
+    a block's work is the padded work over the blocks at the plan's rate; a
+    split of K costs SPLIT_COST more (its workspace and their sum)."""
+    n_blocks = tiles(p, batch, h, w, cout) * splits
+    full, rem = divmod(-(-n_blocks // limits.sms), p.blocks)
+
+    def rate(k: int) -> float:
+        return 1.0 if k >= p.blocks else OCCUPANCY[k - 1]
+
+    rounds = full * p.blocks / rate(p.blocks) + (rem / rate(rem) if rem else 0.0)
+    return (padded_work(p, batch, h, w, cout) / n_blocks * rounds / p.tflops
+            * (1 + SPLIT_COST * (splits > 1)))
 
 
 @functools.lru_cache(maxsize=1024)
@@ -169,9 +219,11 @@ def choose_plan(batch: int, h: int, w: int, cin: int, cout: int,
                 splits: int | None = None) -> Launch:
     """The launch ``conv3x3`` makes for this shape; ``plan`` and ``splits``
     force a plan (any of PLANS, or DIRECT where it fits) or a split of K.
-    Cout 1 and 2 take the direct kernel; otherwise the plan with the least
-    padded Cout over its rate (``_fastest_plan``), K split as ``_splits``
-    says.  A pure function of the shape: it loads no library."""
+    Cout 1 and 2 take the direct kernel; else the halo plan and split of
+    least ``launch_cost`` (the gather where Cin is not a multiple of 4); K
+    split in one of SPLITS only where the tiles leave resident slots of the
+    card empty, each split keeping MIN_K_PER_SPLIT K values.  A pure
+    function of the shape: it loads no library."""
     if plan is None and direct_fits(cin, cout):
         plan = DIRECT
     if plan == DIRECT:
@@ -181,20 +233,28 @@ def choose_plan(batch: int, h: int, w: int, cin: int, cout: int,
                              f"Cout={cout}")
         return Launch(DIRECT, 1, 0, cout)
     if plan is None:
-        p = _fastest_plan(cin, cout)
+        plans = HALO_PLANS if cin % 4 == 0 else (PLAN_BY_NAME[GATHER],)
     elif plan in PLAN_BY_NAME:
-        p = PLAN_BY_NAME[plan]
-        if p.am and cin % 4:
-            raise ValueError(f"plan {plan!r} copies 4 channels at once and takes Cin a "
+        plans = (PLAN_BY_NAME[plan],)
+        if plans[0].halo and cin % 4:
+            raise ValueError(f"plan {plan!r} loads x through a tensor map and takes Cin a "
                              f"multiple of 4, got {cin}")
     else:
         raise ValueError(f"plan must be one of {(*PLAN_BY_NAME, DIRECT)}, got {plan!r}")
-    total = 9 * -(-cin // BK)
-    tiles = -(-(batch * h * w) // p.bm) * -(-cout // p.bn)
-    splits = _splits(tiles, total, p, limits) if splits is None else splits
-    slabs = -(-total // splits)
-    splits = -(-total // slabs)   # no empty split
-    return Launch(p.name, splits, slabs, -(-cout // p.bn) * p.bn)
+    best = None
+    for p in plans:
+        # K steps: chunks of BK channels (a halo plan) or slabs of one tap's (the gather)
+        total = -(-cin // BK) * (1 if p.halo else 9)
+        most = max(1, min(MAX_SPLITS, total * (CHUNK_K if p.halo else BK) // MIN_K_PER_SPLIT))
+        short = tiles(p, batch, h, w, cout) < limits.sms * p.blocks
+        for s in ((splits,) if splits is not None
+                  else [s for s in SPLITS if s <= most] if short else (1,)):
+            steps = -(-total // s)
+            s = -(-total // steps)   # no empty split
+            cost = launch_cost(p, batch, h, w, cout, s, limits)
+            if best is None or cost < best[0]:
+                best = (cost, Launch(p.name, s, steps, -(-cout // p.bn) * p.bn))
+    return best[1]
 
 
 @functools.lru_cache(maxsize=1024)
@@ -202,23 +262,22 @@ def choose_wgrad_plan(batch: int, h: int, w: int, cin: int, cout: int,
                       limits: DeviceLimits = H100, plan: str | None = None,
                       splits: int | None = None) -> WgradLaunch:
     """The launch of the weight gradient for this shape: the tile of least
-    padded Cout over its rate (``_fastest_plan``, any plan: wgrad's A is
-    k-major), over 9 * Cin + 1 rows; K (B*H*W pixels, in slabs of BK) split
-    until the tiles fill the resident slots of one wave, each split keeping
-    WGRAD_MIN_SLABS slabs.  ``plan`` and ``splits`` force them.  A pure
-    function of the shape."""
+    padded Cout over its rate, over 9 * Cin + 1 rows; K (B*H*W pixels, in
+    slabs of BK) split until the tiles fill the resident slots of one wave,
+    each split keeping WGRAD_MIN_SLABS slabs.  ``plan`` and ``splits`` force
+    them.  A pure function of the shape."""
     if plan is None:
-        p = _fastest_plan(cin, cout, k_major=True)
-    elif plan in PLAN_BY_NAME:
-        p = PLAN_BY_NAME[plan]
+        p = min(WGRAD_PLANS, key=lambda p: -(-cout // p.bn) * p.bn / p.tflops)
+    elif plan in WGRAD_PLAN_BY_NAME:
+        p = WGRAD_PLAN_BY_NAME[plan]
     else:
-        raise ValueError(f"plan must be one of {tuple(PLAN_BY_NAME)}, got {plan!r}")
+        raise ValueError(f"plan must be one of {tuple(WGRAD_PLAN_BY_NAME)}, got {plan!r}")
     rows = 9 * cin + 1
     total = -(-(batch * h * w) // BK)
     if splits is None:
-        tiles = -(-rows // p.bm) * -(-cout // p.bn)
+        n_tiles = -(-rows // p.bm) * -(-cout // p.bn)
         most = max(1, total // WGRAD_MIN_SLABS)
-        splits = min(most, max(1, limits.sms * p.blocks // tiles))
+        splits = min(most, max(1, limits.sms * p.blocks // n_tiles))
     splits = min(splits, total, 65535)
     slabs = -(-total // splits)
     splits = -(-total // slabs)   # no empty split
@@ -279,6 +338,11 @@ def _kernels() -> ctypes.CDLL:
     lib.ccvpe_conv3x3_direct.restype = i
     lib.ccvpe_conv3x3_wgrad.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
     lib.ccvpe_conv3x3_wgrad.restype = i
+    lib.ccvpe_conv3x3_init.argtypes = []
+    lib.ccvpe_conv3x3_init.restype = i
+    rc = lib.ccvpe_conv3x3_init()
+    if rc != 0:
+        raise RuntimeError(f"conv3x3: the driver offers no cuTensorMapEncodeTiled (cudaError {rc})")
     return lib
 
 
@@ -304,9 +368,9 @@ def _check(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None) -> 
 
 
 def _run(x: torch.Tensor, wp: torch.Tensor, bias: torch.Tensor | None, relu: bool,
-         cout: int, plan: str, splits: int, slabs: int, npad: int) -> torch.Tensor:
-    """Allocate and launch the implicit GEMM (or the direct kernel) on ``x``
-    with the packed weight ``wp``."""
+         cout: int, plan: str, splits: int, steps: int, npad: int) -> torch.Tensor:
+    """Allocate and launch the halo kernel, the gather or the direct kernel on
+    ``x`` with the packed weight ``wp``."""
     b, cin, h, w = x.shape
     bp = None if bias is None else bias.to(torch.float32).contiguous()
     out = torch.empty((b, cout, h, w), dtype=torch.float32, device=x.device,
@@ -324,26 +388,26 @@ def _run(x: torch.Tensor, wp: torch.Tensor, bias: torch.Tensor | None, relu: boo
             rc = _kernels().ccvpe_conv3x3(
                 x.data_ptr(), wp.data_ptr(), bias_ptr, out.data_ptr(),
                 None if ws is None else ws.data_ptr(), b, h, w, cin, cout, npad, int(relu),
-                PLANS.index(PLAN_BY_NAME[plan]), splits, slabs, stream)
+                PLANS.index(PLAN_BY_NAME[plan]), splits, steps, stream)
     if rc != 0:
         raise RuntimeError(f"conv3x3 ({plan}) launch failed: cudaError {rc}")
     return out
 
 
 def _launch_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
-                 relu: bool, plan: str, splits: int, slabs: int, npad: int) -> torch.Tensor:
+                 relu: bool, plan: str, splits: int, steps: int, npad: int) -> torch.Tensor:
     """The body of ``ccvpe::conv3x3`` on a CUDA tensor: repack, allocate, launch."""
     wp = packed_weight(weight, npad, x.shape[1] if plan == DIRECT else BK)
-    return _run(x, wp, bias, relu, weight.shape[0], plan, splits, slabs, npad)
+    return _run(x, wp, bias, relu, weight.shape[0], plan, splits, steps, npad)
 
 
 def _launch_dgrad_cuda(g: torch.Tensor, weight: torch.Tensor, plan: str, splits: int,
-                       slabs: int, npad: int) -> torch.Tensor:
+                       steps: int, npad: int) -> torch.Tensor:
     """The body of ``ccvpe::conv3x3_dgrad``: the input's gradient from the
     output's gradient ``g`` (the forward's weight, repacked transposed and
     flipped)."""
     wp = packed_weight(weight, npad, g.shape[1] if plan == DIRECT else BK, transposed=True)
-    return _run(g, wp, None, False, weight.shape[1], plan, splits, slabs, npad)
+    return _run(g, wp, None, False, weight.shape[1], plan, splits, steps, npad)
 
 
 def _launch_wgrad_cuda(x: torch.Tensor, g: torch.Tensor, plan: str, splits: int, slabs: int,
@@ -360,7 +424,7 @@ def _launch_wgrad_cuda(x: torch.Tensor, g: torch.Tensor, plan: str, splits: int,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _kernels().ccvpe_conv3x3_wgrad(
             x.data_ptr(), g.data_ptr(), ws.data_ptr(), dw.data_ptr(), db.data_ptr(), b, h, w,
-            cin, cout, PLANS.index(PLAN_BY_NAME[plan]), splits, slabs, ldw, stream)
+            cin, cout, WGRAD_PLANS.index(WGRAD_PLAN_BY_NAME[plan]), splits, slabs, ldw, stream)
     if rc != 0:
         raise RuntimeError(f"conv3x3 wgrad ({plan}) launch failed: cudaError {rc}")
     return dw, db
@@ -372,9 +436,9 @@ def _launch_wgrad_cuda(x: torch.Tensor, g: torch.Tensor, plan: str, splits: int,
 # would not see it).
 _LIB = torch.library.Library("ccvpe", "DEF")
 _LIB.define("conv3x3(Tensor x, Tensor weight, Tensor? bias, bool relu, str plan, int splits, "
-            "int slabs, int npad) -> Tensor")
+            "int steps, int npad) -> Tensor")
 _LIB.impl("conv3x3", _launch_cuda, "CUDA")
-_LIB.define("conv3x3_dgrad(Tensor g, Tensor weight, str plan, int splits, int slabs, "
+_LIB.define("conv3x3_dgrad(Tensor g, Tensor weight, str plan, int splits, int steps, "
             "int npad) -> Tensor")
 _LIB.impl("conv3x3_dgrad", _launch_dgrad_cuda, "CUDA")
 _LIB.define("conv3x3_wgrad(Tensor x, Tensor g, str plan, int splits, int slabs, int ldw) "

@@ -77,20 +77,26 @@ def _check(x, wt, bias, relu, **force):
 
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_decoder_shapes_match_conv2d(dev, shape):
+    """Every decoder shape of VIGOR, KITTI and Oxford at batch 8 under its
+    plan: the halo kernel but for Cout 1 and 2 (the direct kernel)."""
     x, wt, bias = _inputs(dev, *shape)
-    before = C.launch_counts()[C.choose_plan(*shape).plan]
+    plan = C.choose_plan(*shape).plan
+    assert C.PLAN_BY_NAME[plan].halo if shape[4] > 2 else plan == C.DIRECT
+    before = C.launch_counts()[plan]
     _check(x, wt, bias, relu=True)
     torch.cuda.synchronize()
-    assert C.launch_counts()[C.choose_plan(*shape).plan] == before + 1
+    assert C.launch_counts()[plan] == before + 1
 
 
 @pytest.mark.parametrize("plan", [p.name for p in C.PLANS] + [C.DIRECT])
 @pytest.mark.parametrize("cin", [20, 24, 56])
 @pytest.mark.parametrize("relu", [False, True])
 def test_ragged_shapes_every_plan(dev, plan, cin, relu):
-    """Batch 3, 17x33 (tiles straddle rows and images), Cin a multiple of 8
-    but not of 16 (24, 56) or of 4 only (20: the last slab of each tap half
-    zero-padding), Cout not a multiple of any tile, and a split of K."""
+    """Batch 3, 17x33 (H and W multiples of no tile: the halo tiles hang
+    over the bottom and right edges, the gather's straddle rows and images),
+    Cin a multiple of 8 but not of 16 (24, 56) or of 4 only (20: the last
+    chunk half zero-padding, from the tensor map's out-of-bounds fill),
+    Cout not a multiple of any tile, and a split of K."""
     cout = 2 if plan == C.DIRECT else 37
     x, wt, bias = _inputs(dev, 3, 17, 33, cin, cout, seed=cin)
     _check(x, wt, bias, relu, plan=plan)
@@ -98,18 +104,38 @@ def test_ragged_shapes_every_plan(dev, plan, cin, relu):
         _check(x, wt, bias, relu, plan=plan, splits=3)
 
 
-@pytest.mark.parametrize("plan", ["wide", "n32"])
+@pytest.mark.parametrize("plan", [p.name for p in C.PLANS])
 def test_large_border_values(dev, plan):
-    """Border taps that carry 1e4 times the interior: a zero-filled tap
-    outside the image that were not zero would show at once."""
+    """Border taps that carry 1e4 times the interior: a halo pixel or tap
+    outside the image that were not zero-filled would show at once."""
     x, wt, bias = _inputs(dev, 2, 9, 14, 40, 64, seed=3, border=1e4)
     _check(x, wt, bias, relu=False, plan=plan)
 
 
+@pytest.mark.parametrize("plan", [p.name for p in C.HALO_PLANS])
+@pytest.mark.parametrize("shape", [(2, 5, 7, 12, 20), (1, 1, 1, 8, 16), (3, 2, 40, 4, 16)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_halo_images_smaller_than_a_tile(dev, plan, shape):
+    """Images smaller than one tile (one pixel; two rows), Cin 4, 8 and 12
+    (a chunk partly past Cin), forward with its border 1e3 times the
+    interior and dgrad, under every halo plan."""
+    x, wt, bias = _inputs(dev, *shape, seed=5, border=1e3)
+    _check(x, wt, bias, relu=True, plan=plan)
+    b, h, w, cin, cout = shape
+    gy = torch.randn(b, cout, h, w, generator=torch.Generator().manual_seed(6)).to(dev)
+    gy = gy.contiguous(memory_format=torch.channels_last)
+    got = C._conv3x3_dgrad(gy, wt, C.choose_plan(b, h, w, cout, cin, plan=plan))
+    want = torch.nn.grad.conv2d_input(tuple(x.shape), wt.double(), gy.double(), padding=1)
+    assert _rel(got, want) <= REL_TOL
+
+
 def test_cin_not_multiple_of_four_takes_k_major_plans(dev):
+    """A tensor map cannot stride Cin 6: the gather takes it."""
     x, wt, bias = _inputs(dev, 2, 11, 7, 6, 16, seed=4)
-    assert not C.PLAN_BY_NAME[C.choose_plan(2, 11, 7, 6, 16).plan].am
+    assert C.choose_plan(2, 11, 7, 6, 16).plan == C.GATHER
+    before = C.launch_counts()[C.GATHER]
     _check(x, wt, bias, relu=True)
+    assert C.launch_counts()[C.GATHER] == before + 1
 
 
 def test_refuses_what_it_does_not_take(dev):
@@ -124,10 +150,13 @@ def test_refuses_what_it_does_not_take(dev):
         _check(x, wt, bias, False, plan=C.DIRECT)
     x6, wt6, bias6 = _inputs(dev, 2, 8, 8, 6, 16)
     with pytest.raises(ValueError, match="multiple of 4"):
-        _check(x6, wt6, bias6, False, plan="n16")
+        _check(x6, wt6, bias6, False, plan="h16")
     # a plan whose tile the library does not take for this N
     with pytest.raises(RuntimeError, match="launch failed"):
-        C._conv3x3(x, wt, bias, False, C.Launch("wide", 1, 18, 64))
+        C._conv3x3(x, wt, bias, False, C.Launch("h128", 1, 2, 64))
+    # a halo plan on Cin 6, which no tensor map strides
+    with pytest.raises(RuntimeError, match="launch failed"):
+        C._conv3x3(x6, wt6, bias6, False, C.Launch("h16", 1, 1, 16))
 
 
 def test_weight_written_through_data_is_followed(dev):
@@ -159,7 +188,7 @@ def test_profiler_sees_the_kernel_under_its_op(dev):
         torch.cuda.synchronize()
     ops = [e for e in prof.events() if e.name == "ccvpe::conv3x3"]
     assert len(ops) == 1
-    assert any("conv3x3_gemm_kernel" in k.name for k in ops[0].kernels), ops[0].kernels
+    assert any("conv3x3_halo_kernel" in k.name for k in ops[0].kernels), ops[0].kernels
 
 
 def _model(cfg, dev):
@@ -170,14 +199,20 @@ def _model(cfg, dev):
 
 @pytest.mark.parametrize("cfg", [cvm.VIGOR, cvm.KITTI], ids=lambda c: c.name)
 def test_predict_batch_launches_24(dev, cfg):
+    """24 launches a call, eager (the first) and replayed: 22 on the halo
+    kernel, the two convs to Cout 1 and 2 on the direct kernel."""
     model = _model(cfg, dev)
     rng = np.random.default_rng(0)
     grd = rng.integers(0, 256, (2, *cfg.grd_hw, 3), dtype=np.uint8)
     sat = rng.integers(0, 256, (2, *cfg.sat_hw, 3), dtype=np.uint8)
-    before = sum(C.launch_counts().values())
-    model.predict_batch(grd, sat)
-    torch.cuda.synchronize()
-    assert sum(C.launch_counts().values()) - before == 24
+    for _ in range(2):
+        before = C.launch_counts()
+        model.predict_batch(grd, sat)
+        torch.cuda.synchronize()
+        after = C.launch_counts()
+        grew = {k: after[k] - before[k] for k in after}
+        assert sum(grew.values()) == 24
+        assert (C.halo_launches(grew), grew[C.DIRECT]) == (22, 2), grew
     plain = api.CVMModel(cfg, model.net, dev, matching_impl="plain")
     before = sum(C.launch_counts().values())
     plain.predict_batch(grd, sat)
@@ -276,26 +311,31 @@ def test_decoder_shapes_backward(dev, shape):
 @pytest.mark.parametrize("cin", [6, 20, 24, 56])
 def test_ragged_backward_every_plan(dev, plan, cin):
     """Batch 3, 17x33, Cin 6 (not a multiple of 4: wgrad's scalar gather),
-    20, 24, 56, Cout 37 and, under the direct plan's shapes, 1 and 2 (dgrad
-    with Cin 1 or 2 on a k-major plan; wgrad's scalar loads of g): dgrad
-    under every plan its Cin takes, with and without a split of K, and
-    wgrad under every plan with 1, 3 and the chosen number of splits."""
-    couts = (1, 2) if plan == C.DIRECT else (37,)
+    20, 24, 56; Cout 36 under a halo plan (dgrad's input, g, needs a
+    multiple of 4), 37 under the gather and, under the direct plan's
+    shapes, 1 and 2 (dgrad with Cin 1 or 2: the gather; wgrad's scalar
+    loads of g): dgrad under the plan, with and without a split of K, and
+    wgrad with 1, 3 and the chosen number of splits under every wgrad plan
+    (the direct case) or one of them in turn."""
+    if plan == C.DIRECT:
+        couts, dgrad_plans, wgrad_plans = (1, 2), [C.GATHER], [p.name for p in C.WGRAD_PLANS]
+    else:
+        couts = (36,) if C.PLAN_BY_NAME[plan].halo else (37,)
+        dgrad_plans = [plan]
+        wgrad_plans = [C.WGRAD_PLANS[C.PLANS.index(C.PLAN_BY_NAME[plan])
+                                     % len(C.WGRAD_PLANS)].name]
     for cout in couts:
         x, wt, bias, gy = _grad_inputs(dev, 3, 17, 33, cin, cout, seed=cin + cout)
         g64 = gy.double()
         want_dx = torch.nn.grad.conv2d_input(tuple(x.shape), wt.double(), g64, padding=1)
-        for p in ([p.name for p in C.PLANS if not (p.am and cout % 4)]
-                  if plan == C.DIRECT else [plan] if not (C.PLAN_BY_NAME[plan].am and cout % 4)
-                  else []):
+        for p in dgrad_plans:
             for splits in (1, 3):
                 got = C._conv3x3_dgrad(gy, wt, C.choose_plan(3, 17, 33, cout, cin, plan=p,
                                                              splits=splits))
                 assert _rel(got, want_dx) <= REL_TOL, (p, splits)
         want_dw = torch.nn.grad.conv2d_weight(x.double(), tuple(wt.shape), g64, padding=1)
         want_db = g64.sum((0, 2, 3))
-        plans = [p.name for p in C.PLANS] if plan == C.DIRECT else [plan]
-        for p in plans:
+        for p in wgrad_plans:
             for splits in (1, 3, None):
                 dw, db = C._conv3x3_wgrad(x, gy, C.choose_wgrad_plan(3, 17, 33, cin, cout,
                                                                      plan=p, splits=splits))
@@ -305,9 +345,13 @@ def test_ragged_backward_every_plan(dev, plan, cin):
 
 
 def test_backward_border_values(dev):
-    """Border pixels that carry 1e4 times the interior: a tap outside the
-    image that wgrad did not zero would show at once."""
+    """Border pixels of x and of the output's gradient that carry 1e4 times
+    the interior: a tap outside the image that wgrad did not zero, or a
+    halo pixel of g that dgrad's tensor map did not zero-fill, would show
+    at once."""
     x, wt, bias, gy = _grad_inputs(dev, 2, 9, 14, 40, 64, seed=3, border=1e4)
+    for edge in (gy[:, :, 0], gy[:, :, -1], gy[:, :, :, 0], gy[:, :, :, -1]):
+        edge.mul_(1e4)
     _check_grads(x, wt, bias, gy, relu=False)
 
 

@@ -31,6 +31,8 @@ def _gflop(cfg) -> float:
 
 @pytest.mark.parametrize("cfg", CONFIGS, ids=lambda c: c.name)
 def test_every_decoder_shape_gets_a_plan(cfg):
+    """Every decoder conv to Cout > 2 takes a halo plan (its Cin is a
+    multiple of 4), K split in whole chunks; Cout 1 and 2 the direct kernel."""
     shapes = decoder_conv_shapes(cfg, 8)
     assert len(shapes) == 24
     for name, (b, h, w, cin, cout) in shapes:
@@ -39,10 +41,11 @@ def test_every_decoder_shape_gets_a_plan(cfg):
             assert launch.plan == C.DIRECT, name
             continue
         plan = C.PLAN_BY_NAME[launch.plan]
+        assert plan.halo and cin % 4 == 0, (name, launch)
         assert C.n_waste(cout, plan.bn) <= MAX_N_WASTE, (name, launch)
         assert launch.npad % plan.bn == 0 and launch.npad >= cout
-        total = 9 * -(-cin // C.BK)
-        assert launch.splits * launch.slabs >= total > (launch.splits - 1) * launch.slabs
+        total = -(-cin // C.BK)
+        assert launch.splits * launch.steps >= total > (launch.splits - 1) * launch.steps
         assert 1 <= launch.splits <= C.MAX_SPLITS
 
 
@@ -169,17 +172,20 @@ def test_route_sends_the_24_decoder_convs(monkeypatch):
 
 def test_choose_plan_forced_and_refused():
     assert C.choose_plan(2, 8, 8, 16, 1) == C.Launch(C.DIRECT, 1, 0, 1)
-    launch = C.choose_plan(2, 8, 8, 24, 40, plan="n32", splits=3)
-    assert launch == C.Launch("n32", 3, 9, 64)
-    # 27 slabs in splits of at most 9 slabs: never an empty split
-    assert C.choose_plan(2, 8, 8, 24, 40, plan="wide", splits=8).splits == 7
+    # the gather: 27 slabs of one tap in 3 splits
+    assert C.choose_plan(2, 8, 8, 24, 40, plan=C.GATHER, splits=3) == C.Launch(C.GATHER, 3, 9, 64)
+    # a halo plan: 3 chunks in 3 splits; 5 chunks in splits of at most 2
+    # chunks: never an empty split
+    assert C.choose_plan(2, 8, 8, 24, 40, plan="h32", splits=3) == C.Launch("h32", 3, 1, 64)
+    assert C.choose_plan(2, 8, 8, 40, 40, plan="h128", splits=4).splits == 3
     with pytest.raises(ValueError, match="plan must be"):
         C.choose_plan(2, 8, 8, 24, 40, plan="nope")
     with pytest.raises(ValueError, match="multiple of 4"):
-        C.choose_plan(2, 8, 8, 6, 40, plan="n48")
+        C.choose_plan(2, 8, 8, 6, 40, plan="h64")
     with pytest.raises(ValueError, match="direct"):
         C.choose_plan(2, 8, 8, 6, 2, plan=C.DIRECT)
-    assert not C.PLAN_BY_NAME[C.choose_plan(2, 8, 8, 6, 40).plan].am
+    assert C.choose_plan(2, 8, 8, 6, 40).plan == C.GATHER
+    assert C.PLAN_BY_NAME[C.choose_plan(2, 8, 8, 4, 40).plan].halo
 
 
 @pytest.mark.parametrize("chunk", [C.BK, 12])
@@ -290,20 +296,103 @@ def test_wgrad_gemm_is_conv2d_weight(cin, cout):
     assert torch.equal(db, g.sum((0, 2, 3)))
 
 
+def _halo_smem(p) -> int:
+    """Bytes of shared memory a block of halo plan ``p`` asks for (the
+    kernel's ``Halo::SMEM``): three stages of its halo tile (128-byte
+    aligned) and its chunk of weights, and the ring's six barriers."""
+    a = -(-(p.th + 2) * (p.tw + 2) * C.BK * 4 // 128) * 128
+    return 3 * (a + C.CHUNK_K * p.bn * 4) + 6 * 8
+
+
+@pytest.mark.parametrize("plan", C.HALO_PLANS, ids=lambda p: p.name)
+def test_halo_plan_fits_tma_and_the_sm(plan):
+    """A halo plan's boxes fit TMA (at most 256 elements a dimension, an
+    inner box of a multiple of 16 bytes), its ring fits a block's shared
+    memory and its resident blocks an SM's, and its threads make whole warps
+    whose lanes span one row of pixels (the kernel's ``Halo`` asserts)."""
+    th, tw, bn = plan.th, plan.tw, plan.bn
+    for box in ((C.BK, tw + 2, th + 2, 1), (bn, C.CHUNK_K)):
+        assert all(1 <= d <= 256 for d in box), box
+        assert box[0] * 4 % 16 == 0, box
+    # a block may opt into 227 KB; an SM has 228 KB, 1 KB of it reserved a block
+    assert _halo_smem(plan) <= 227 * 1024
+    assert plan.blocks * (_halo_smem(plan) + 1024) <= 228 * 1024
+    mt, nt = th * tw // 8, bn // 8
+    wn = 8 if nt % 8 == 0 else 4 if nt % 4 == 0 else 2
+    assert mt * nt % 32 == 0 and nt % wn == 0 and tw % (32 // wn) == 0 and mt % tw == 0
+    assert th == 8 * (mt // tw)
+
+
+def _halo_gemm(x: torch.Tensor, w: torch.Tensor, p) -> torch.Tensor:
+    """The halo kernel's arithmetic on the CPU: for each block's tile, each
+    chunk's halo as the tensor map writes it ([TH+2][TW+2][8], zero outside
+    the image and past Cin), thread tm's pixels (g + r*RG, px) with g, px =
+    divmod(tm, TW), tap (dy, dx) of pixel r read at halo row
+    (g + r*RG + dy)(TW + 2) + px + dx, times the chunk's packed weights."""
+    b, cin, h, wd = x.shape
+    cout = w.shape[0]
+    chunks = -(-cin // C.BK)
+    npad = -(-cout // p.bn) * p.bn
+    packed = C.packed_weight(w, npad, C.BK).double()
+    tiles_y, tiles_x = -(-h // p.th), -(-wd // p.tw)
+    padded = x.new_zeros(b, tiles_y * p.th + 2, tiles_x * p.tw + 2, chunks * C.BK)
+    padded[:, 1:h + 1, 1:wd + 1, :cin] = x.permute(0, 2, 3, 1)
+    mt = p.th * p.tw // 8
+    rg, hw = mt // p.tw, p.tw + 2
+    g, px = torch.arange(mt) // p.tw, torch.arange(mt) % p.tw
+    rows = g[:, None] + rg * torch.arange(8)[None, :]                     # [MT, 8]
+    out = x.new_zeros(b, tiles_y * p.th, tiles_x * p.tw, npad)
+    for bi in range(b):
+        for ty in range(tiles_y):
+            for tx in range(tiles_x):
+                y0, x0 = ty * p.th, tx * p.tw
+                acc = x.new_zeros(mt, 8, npad)
+                for j in range(chunks):
+                    halo = padded[bi, y0:y0 + p.th + 2, x0:x0 + p.tw + 2,
+                                  j * C.BK:(j + 1) * C.BK].reshape(-1)
+                    for tap in range(9):
+                        at = ((rows + tap // 3) * hw + px[:, None] + tap % 3) * C.BK
+                        a = halo[at[..., None] + torch.arange(C.BK)]              # [MT, 8, BK]
+                        row = (j * 9 + tap) * C.BK
+                        acc += a @ packed[row:row + C.BK]
+                out[bi, y0 + rows, x0 + px[:, None]] = acc
+    return out[:, :h, :wd, :cout].permute(0, 3, 1, 2)
+
+
+@pytest.mark.parametrize("plan", C.HALO_PLANS, ids=lambda p: p.name)
+def test_halo_arithmetic_is_conv2d(plan):
+    """The halo kernel's index arithmetic, as ``_halo_gemm`` repeats it, is
+    a zero-padded 3x3 conv: ragged tiles (H, W multiples of no tile), an
+    image smaller than a tile, Cin 12 (a chunk half past Cin), Cout not a
+    multiple of BN; and a thread's pixels and columns cover its tile once."""
+    for shape in ((2, 11, 21, 12, 20), (1, 3, 5, 4, 8)):
+        b, h, w, cin, cout = shape
+        x = _ints(b, cin, h, w, seed=h, lo=-3, hi=4)
+        wt = _ints(cout, cin, 3, 3, seed=w)
+        assert torch.equal(_halo_gemm(x, wt, plan), F.conv2d(x, wt, padding=1)), shape
+    mt, nt = plan.th * plan.tw // 8, plan.bn // 8
+    pixels = {(tm // plan.tw + r * (mt // plan.tw), tm % plan.tw)
+              for tm in range(mt) for r in range(8)}
+    assert len(pixels) == plan.th * plan.tw and max(pixels) < (plan.th, plan.tw)
+    columns = sorted((tn + hh * nt) * 4 + j for tn in range(nt) for hh in range(2)
+                     for j in range(4))
+    assert columns == list(range(plan.bn))
+
+
 @pytest.mark.parametrize("cfg", CONFIGS, ids=lambda c: c.name)
 def test_every_decoder_shape_gets_backward_plans(cfg):
-    """dgrad's launch is the forward's at (Cout -> Cin): Cin 1 and 2 (the
-    last convs) take a k-major plan.  wgrad's tiles cover 9 * Cin + 1 rows
-    and Cout columns with little padding of Cout, its splits fill one wave
-    of resident blocks and keep WGRAD_MIN_SLABS slabs each."""
+    """dgrad's launch is the forward's at (Cout -> Cin): a halo plan, but
+    for Cin 1 and 2 (the last convs), which take the gather.  wgrad's tiles
+    cover 9 * Cin + 1 rows and Cout columns with little padding of Cout, its
+    splits fill one wave of resident blocks and keep WGRAD_MIN_SLABS slabs
+    each."""
     for name, (b, h, w, cin, cout) in decoder_conv_shapes(cfg, 8):
         d = C.choose_plan(b, h, w, cout, cin)
-        if cout <= 2:
-            assert not C.PLAN_BY_NAME[d.plan].am, (name, d)
-        total = 9 * -(-cout // C.BK)
-        assert d.splits * d.slabs >= total > (d.splits - 1) * d.slabs
+        assert d.plan == C.GATHER if cout <= 2 else C.PLAN_BY_NAME[d.plan].halo, (name, d)
+        total = 9 * -(-cout // C.BK) if d.plan == C.GATHER else -(-cout // C.BK)
+        assert d.splits * d.steps >= total > (d.splits - 1) * d.steps
         launch = C.choose_wgrad_plan(b, h, w, cin, cout)
-        plan = C.PLAN_BY_NAME[launch.plan]
+        plan = C.WGRAD_PLAN_BY_NAME[launch.plan]
         if cout > 2:
             assert C.n_waste(cout, plan.bn) <= MAX_N_WASTE, (name, launch)
         pixels = -(-(b * h * w) // C.BK)

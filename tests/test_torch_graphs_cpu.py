@@ -275,21 +275,21 @@ def test_kernel_wrappers_count_through_the_tally():
     from ccvpe_torch.nn import layers
     from ccvpe_torch.ops import conv_cuda, matching_cuda
 
-    conv_before = conv_cuda.launch_counts()["wide"]
+    conv_before = conv_cuda.launch_counts()["h128"]
     passes_before = conv_cuda.pass_counts()
     k1_before = matching_cuda.LAUNCH_COUNTS["matching_epilogue", "tile", "float32"]
     int8_before = layers.int8_counts()["mm"]
     tally = {}
     with graphs.tallying(tally):
-        conv_cuda._count("wide")
+        conv_cuda._count("h128")
         conv_cuda._count(None, "wgrad")
         matching_cuda._count("matching_epilogue", "tile", torch.float32)
         layers._count_int8("mm")
-    assert conv_cuda.launch_counts()["wide"] == conv_before
+    assert conv_cuda.launch_counts()["h128"] == conv_before
     assert conv_cuda.pass_counts() == passes_before
     assert layers.int8_counts()["mm"] == int8_before
     graphs.add_tally(tally)
-    assert conv_cuda.launch_counts()["wide"] == conv_before + 1
+    assert conv_cuda.launch_counts()["h128"] == conv_before + 1
     passes = conv_cuda.pass_counts()
     assert {k: passes[k] - passes_before[k] for k in conv_cuda.PASSES} == {
         "forward": 1, "dgrad": 0, "wgrad": 1}
